@@ -8,8 +8,11 @@ prints no result line):
 1. build the CUDA kernel from ``unet_design_tpu_torch/csrc`` with nvcc and
    print the card's name and power limit;
 2. hold the Haar-pyramid kernel against its plain PyTorch version on the
-   card at the training path's shapes, and time it beside its bound, the
-   plain version and the ``F.avg_pool2d`` chain;
+   card, bit for bit, at the training path's shapes, the CIFAR shape, in
+   bf16, off a 16-byte boundary and where the plan splits the width; time
+   it at (8, 128, 128, 3) and (128, 32, 32, 3) L4 beside its bound, the
+   plain version, the ``F.avg_pool2d`` chain (kernel and chain in turns)
+   and an empty kernel on the same grid (the launch floor);
 3. train ``Unetbase-64_G`` at full width (hidden 64, 128x128, batch 8) with
    the DWT encoder, the multi-resolution loss and freezing through four
    stages of one epoch each, stopping and resuming at every stage boundary
@@ -27,7 +30,6 @@ before that, the kernels' JSON record; the last line,
 from __future__ import annotations
 
 import json
-import math
 import os
 import shutil
 import subprocess
@@ -72,32 +74,6 @@ def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_us(fn, calls: int = 50) -> float:
-    """Device time per call, summed over the kernels ``fn`` launches, from
-    ``torch.profiler``; CUDA events above include the host's time to
-    enqueue, which at a few microseconds of device work is most of it.
-    Raises if the profiler sees no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    # device-side rows only: an operator's row repeats its kernels' time
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    if not total:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return total / calls
-
-
-def bf16_ulp(x: torch.Tensor) -> float:
-    """One bf16 ulp (8 significant bits) at the data's largest magnitude."""
-    return 2.0 ** (math.floor(math.log2(float(x.abs().max()))) - 7)
-
-
 def phase_build():
     from unet_design_tpu_torch.ops import _build, haar
     t0 = time.perf_counter()
@@ -114,37 +90,63 @@ def phase_kernel(device) -> dict:
     from unet_design_tpu_torch.ops import haar, wavelet
     rng = np.random.default_rng(0)
 
-    def rand(shape, dtype=torch.float32):
-        return torch.from_numpy(rng.standard_normal(shape).astype(
+    def rand(shape, dtype=torch.float32, misalign=0):
+        """Seeded data; ``misalign`` elements of storage offset put the
+        tensor off a 16-byte boundary."""
+        x = torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(device=device, dtype=dtype)
+        if misalign:
+            store = torch.empty(x.numel() + misalign, dtype=dtype,
+                                device=device)
+            store[misalign:] = x.flatten()
+            x = store[misalign:].view(shape)
+        return x
 
-    cases = [((8, 128, 128, 3), 4, torch.float32),
-             ((8, 64, 64, 3), 3, torch.float32),
-             ((8, 32, 32, 3), 2, torch.float32),
-             ((8, 16, 16, 3), 1, torch.float32),
-             ((8, 128, 128, 3), 4, torch.bfloat16),
-             ((2, 32, 64, 5), 4, torch.float32),
-             ((3, 40, 24, 40), 4, torch.float32)]  # chunks, ragged tiles
+    # (shape, n_levels, dtype, misalign): the training path's shapes, the
+    # CIFAR shape, bf16, a ragged level, a generic channel count, spans off
+    # a 16-byte boundary, and shapes whose plan splits the width
+    cases = [((8, 128, 128, 3), 4, torch.float32, 0),
+             ((8, 64, 64, 3), 3, torch.float32, 0),
+             ((8, 32, 32, 3), 2, torch.float32, 0),
+             ((8, 16, 16, 3), 1, torch.float32, 0),
+             ((8, 128, 128, 3), 4, torch.bfloat16, 0),
+             ((128, 32, 32, 3), 4, torch.float32, 0),
+             ((128, 32, 32, 3), 4, torch.bfloat16, 0),
+             ((2, 32, 64, 5), 4, torch.float32, 0),
+             ((3, 40, 24, 40), 4, torch.float32, 0),
+             ((2, 24, 40, 3), 4, torch.float32, 1),
+             ((2, 6, 6, 1), 2, torch.bfloat16, 3),
+             ((1, 16, 2048, 3), 4, torch.float32, 0),
+             ((2, 8, 1000, 5), 4, torch.bfloat16, 1),
+             ((1, 32, 400, 3), 4, torch.float32, 0),
+             ((1, 4, 8, 3000), 2, torch.float32, 0),
+             ((1, 64, 64, 2), 6, torch.float32, 0)]
     max_err = 0.0
-    for shape, n_levels, dtype in cases:
-        x = rand(shape, dtype)
+    for shape, n_levels, dtype, misalign in cases:
+        x = rand(shape, dtype, misalign)
+        plan = haar.plan(x.shape, x.dtype, n_levels, x.get_device())
+        before = haar.launches
         out = haar.haar_pyramid(x, n_levels)
         torch.cuda.synchronize()
+        if haar.launches != before + (n_levels > 1):
+            raise AssertionError(f"{shape} L{n_levels}: no launch counted")
         ref = haar.haar_pyramid_reference(x, n_levels)
-        tol = FP32_TOL if dtype == torch.float32 else bf16_ulp(x)
         errs = []
         for a, b in zip(out, ref):
             if a.shape != b.shape or a.dtype != b.dtype:
                 raise AssertionError(f"{shape} L{n_levels}: {a.shape} "
                                      f"{a.dtype} vs {b.shape} {b.dtype}")
             errs.append(float((a.float() - b.float()).abs().max()))
-        log(f"[kernel] {shape} {str(dtype)[6:]} L{n_levels}: max abs err "
-            f"per level {errs} (tol {tol:g})")
-        if max(errs) > tol:
+        tiling = "" if plan.args is None else (
+            f"; {plan.n_seg} segment(s) of {plan.seg} px, grid {plan.grid}")
+        log(f"[kernel] {shape} {str(dtype)[6:]} L{n_levels} x at "
+            f"{x.data_ptr() % 16} mod 16 B: max abs err per level {errs} "
+            f"(bit for bit: tol 0){tiling}")
+        # same additions in the same order as the plain version
+        if max(errs) != 0.0:
             raise AssertionError(f"haar_pyramid disagrees at {shape} "
-                                 f"{dtype} L{n_levels}: {errs} > {tol}")
-        if dtype == torch.float32:
-            max_err = max(max_err, max(errs))
+                                 f"{dtype} L{n_levels}: {errs}")
+        max_err = max(max_err, max(errs))
 
     # the trainer's call: trajectory targets with one stage octave (nd=1)
     y = rand((8, 1, 128, 128, 3))
@@ -157,39 +159,72 @@ def phase_kernel(device) -> dict:
         raise AssertionError(f"multires_targets_traj disagrees: {errs}")
     max_err = max(max_err, max(errs))
 
-    # timing at the main path's largest call
-    x = rand((8, 128, 128, 3))
-    n_levels = 4
-    ms = time_ms(lambda: haar.haar_pyramid(x, n_levels))
-    plain_ms = time_ms(lambda: haar.haar_pyramid_reference(x, n_levels))
+    # timing: the main path's largest call, then the CIFAR shape
+    main = time_pyramid(haar, rand((8, 128, 128, 3)), 4)
+    time_pyramid(haar, rand((128, 32, 32, 3)), 4)
+    return dict(name="haar_pyramid", route="cuda",
+                source="unet_design_tpu_torch/csrc/haar_pyramid.cu",
+                replaces=TPU_KERNEL, launches=None, max_abs_err=max_err,
+                **main)
 
-    def avg_pool_chain():
+
+def time_pyramid(haar, x: torch.Tensor, n_levels: int) -> dict:
+    """Per-call (CUDA events) and device (profiler) times of the kernel,
+    its plain version, the ``F.avg_pool2d`` chain and an empty kernel on
+    the kernel's grid, kernel and chain in turns; and the bound."""
+    from unet_design_tpu_torch.benchmark.probe import device_us
+
+    def kernel():
+        return haar.haar_pyramid(x, n_levels)
+
+    def plain():
+        return haar.haar_pyramid_reference(x, n_levels)
+
+    def chain():
         h = x.permute(0, 3, 1, 2)
         for _ in range(n_levels - 1):
             h = F.avg_pool2d(h, 2)
         return h
 
-    library_ms = time_ms(avg_pool_chain)
-    dev = {name: device_us(fn) for name, fn in (
-        ("kernel", lambda: haar.haar_pyramid(x, n_levels)),
-        ("plain", lambda: haar.haar_pyramid_reference(x, n_levels)),
-        ("avg_pool2d chain", avg_pool_chain))}
-    log(f"[kernel] device time per call (torch.profiler): "
-        + ", ".join(f"{k} {v:.2f} us" for k, v in dev.items()))
+    plan = haar.plan(x.shape, x.dtype, n_levels, x.get_device())
+
+    def empty():
+        haar.launch_empty(plan)
+
+    per_call = {k: [] for k in ("kernel", "chain")}
+    dev = {k: [] for k in ("kernel", "chain")}
+    for _ in range(2):  # kernel, chain, kernel, chain
+        for name, fn in (("kernel", kernel), ("chain", chain)):
+            per_call[name].append(time_ms(fn) * 1e3)
+        for name, fn in (("kernel", kernel), ("chain", chain)):
+            dev[name].append(device_us(fn))
+    plain_us = time_ms(plain) * 1e3
+    plain_dev = device_us(plain)
+    empty_us, empty_dev = time_ms(empty) * 1e3, device_us(empty)
+
     out_elems = sum(x.numel() >> (2 * l) for l in range(1, n_levels))
     n_bytes = (x.numel() + out_elems) * x.element_size()
     n_ops = 4 * out_elems  # 3 adds and a multiply per output
     bound_s = max(n_bytes / BYTES_PER_S, n_ops / FP32_OPS_PER_S)
     bound_by = "bytes" if n_bytes / BYTES_PER_S >= n_ops / FP32_OPS_PER_S \
         else "operations"
-    log(f"[kernel] (8,128,128,3) fp32 L4: kernel {ms * 1e3:.2f} us, plain "
-        f"{plain_ms * 1e3:.2f} us, F.avg_pool2d chain {library_ms * 1e3:.2f}"
-        f" us, bound {bound_s * 1e6:.3f} us ({n_bytes} B) on {card_line()}")
-    return dict(name="haar_pyramid", route="cuda",
-                source="unet_design_tpu_torch/csrc/haar_pyramid.cu",
-                replaces=TPU_KERNEL, launches=None, max_abs_err=max_err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_s * 1e3,
-                bound_by=bound_by, library_ms=library_ms)
+    k_dev = sum(dev["kernel"]) / 2
+    log(f"[kernel] {tuple(x.shape)} {str(x.dtype)[6:]} L{n_levels} on "
+        f"{card_line()}: per call (CUDA events, kernel/chain in turns) "
+        f"kernel {per_call['kernel']} us, F.avg_pool2d chain "
+        f"{per_call['chain']} us, plain {plain_us:.2f} us, empty kernel "
+        f"on grid {plan.grid} {empty_us:.2f} us")
+    log(f"[kernel] {tuple(x.shape)} L{n_levels} device time per call "
+        f"(torch.profiler): kernel {dev['kernel']} us, chain {dev['chain']}"
+        f" us, plain {plain_dev:.2f} us, launch floor (empty kernel "
+        f"on grid {plan.grid}) {empty_dev:.3f} us; bound "
+        f"{bound_s * 1e6:.3f} us ({n_bytes} B, {bound_by}), "
+        f"{bound_s * 1e6 / k_dev:.3f} of it reached")
+    return dict(ms=sum(per_call["kernel"]) / 2e3, plain_ms=plain_us / 1e3,
+                bound_ms=bound_s * 1e3, bound_by=bound_by,
+                library_ms=sum(per_call["chain"]) / 2e3, device_us=k_dev,
+                library_device_us=sum(dev["chain"]) / 2,
+                launch_floor_us=empty_dev)
 
 
 def _slice_config(logdir: str):

@@ -22,10 +22,18 @@ def cuda():
     return torch.device("cuda")
 
 
-def _x(shape, dtype, device, seed=0):
+def _x(shape, dtype, device, seed=0, misalign=0):
+    """Seeded data; ``misalign`` elements of storage offset put the tensor
+    off a 16-byte boundary."""
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-    return x.to(device=device, dtype=dtype)
+    x = x.to(device=device, dtype=dtype)
+    if misalign:
+        store = torch.empty(x.numel() + misalign, dtype=dtype, device=device)
+        store[misalign:] = x.flatten()
+        x = store[misalign:].view(shape)
+        assert x.is_contiguous() and x.data_ptr() % 16
+    return x
 
 
 @pytest.mark.parametrize("shape,n_levels,dtype", [
@@ -34,10 +42,35 @@ def _x(shape, dtype, device, seed=0):
     ((8, 32, 32, 3), 2, torch.float32),
     ((8, 128, 128, 3), 4, torch.bfloat16),
     ((2, 32, 64, 5), 4, torch.float32),
-    ((3, 40, 24, 40), 4, torch.float32),   # channel chunks, ragged tiles
+    ((3, 40, 24, 40), 4, torch.float32),   # generic channel count, ragged
+    ((128, 32, 32, 3), 4, torch.float32),  # CIFAR
+    ((128, 32, 32, 3), 4, torch.bfloat16),
+    ((1, 64, 64, 2), 6, torch.float32),    # levels past the warp shuffles
 ])
 def test_kernel_matches_plain(cuda, shape, n_levels, dtype):
-    x = _x(shape, dtype, cuda)
+    _check_kernel(_x(shape, dtype, cuda), n_levels)
+
+
+@pytest.mark.parametrize("shape,n_levels,dtype,misalign", [
+    ((2, 24, 40, 3), 4, torch.float32, 1),   # input and level spans
+    ((2, 6, 6, 1), 2, torch.bfloat16, 3),
+])
+def test_kernel_unaligned_spans(cuda, shape, n_levels, dtype, misalign):
+    _check_kernel(_x(shape, dtype, cuda, misalign=misalign), n_levels)
+
+
+@pytest.mark.parametrize("shape,n_levels,dtype", [
+    ((1, 16, 2048, 3), 4, torch.float32),
+    ((2, 8, 1000, 5), 4, torch.bfloat16),    # ragged last segment
+    ((1, 32, 400, 3), 4, torch.float32),
+    ((1, 4, 8, 3000), 2, torch.float32),     # more than 48 KB of shared
+])
+def test_kernel_split_width(cuda, shape, n_levels, dtype):
+    assert haar.plan(shape, dtype, n_levels).n_seg > 1
+    _check_kernel(_x(shape, dtype, cuda, misalign=1), n_levels)
+
+
+def _check_kernel(x, n_levels):
     before = haar.launches
     out = haar.haar_pyramid(x, n_levels)
     torch.cuda.synchronize()
@@ -75,3 +108,18 @@ def test_multires_targets_traj_through_kernel(cuda):
                                         pyramid_fn=haar.haar_pyramid)
     for a, b in zip(out, ref):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+def test_plan_is_made_once_and_launch_floor_runs(cuda):
+    x = _x((8, 32, 32, 3), torch.float32, cuda)
+    haar.haar_pyramid(x, 2)
+    p = haar.plan(x.shape, x.dtype, 2, x.get_device())
+    assert p.launch is not None           # bound at the first launch
+    out = haar.haar_pyramid(x, 2)
+    assert haar.plan(x.shape, x.dtype, 2, x.get_device()) is p
+    torch.testing.assert_close(out[1], haar.haar_pyramid_reference(x, 2)[1],
+                               rtol=0, atol=0)
+    before = haar.launches
+    haar.launch_empty(p)
+    torch.cuda.synchronize()
+    assert haar.launches == before

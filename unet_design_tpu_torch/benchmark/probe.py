@@ -136,6 +136,27 @@ def profile_training(logdir: str, top: int = 15) -> dict:
                             for d, c, k in rows[:top]]}
 
 
+def device_us(fn, calls: int = 50) -> float:
+    """Device time per call, summed over the kernels ``fn`` launches, from
+    ``torch.profiler``; CUDA events include the host's time to enqueue,
+    which at a few microseconds of device work is most of it.  Raises if
+    the profiler sees no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    # device-side rows only: an operator's row repeats its kernels' time
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    if not total:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return total / calls
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
     if name.startswith("Memcpy") or name.startswith("Memset"):
