@@ -3,14 +3,15 @@
     python3 chip_smoke.py
 
 Phases, each of which passes or raises (any failure exits non-zero and
-prints no result line):
+prints no result line); each prints its seconds:
 
 1. build the CUDA kernel from ``unet_design_tpu_torch/csrc`` with nvcc and
    print the card's name and power limit;
 2. hold the Haar-pyramid kernel against its plain PyTorch version on the
-   card, bit for bit, at the training path's shapes, the CIFAR shape, in
-   bf16, off a 16-byte boundary and where the plan splits the width; time
-   it at (8, 128, 128, 3) and (128, 32, 32, 3) L4 beside its bound, the
+   card, bit for bit, at the PDE path's shapes, the DDPM path's CIFAR
+   shapes, in bf16, off a 16-byte boundary and where the plan splits the
+   width, and the multi-res targets of both paths through it; time it at
+   (8, 128, 128, 3) L4 and the three CIFAR shapes beside its bound, the
    plain version, the ``F.avg_pool2d`` chain (kernel and chain in turns)
    and an empty kernel on the same grid (the launch floor);
 3. train ``Unetbase-64_G`` at full width (hidden 64, 128x128, batch 8) with
@@ -19,12 +20,24 @@ prints no result line):
    as a preempted run would; check finite losses, one kernel launch per
    step in stages 1-3 and none in stage 0, frozen parameters unchanged, and
    the trained model's forward on the card against the CPU;
-4. time the ``Unetbase-64`` forward at the ``bench.py`` protocol (batch 8,
+4. train the CIFAR-10 DDPM flagship (``configs/diff_cifar_staged.yaml``'s
+   ``MultiResUNet``: ch 128, bf16, DWT encoder, multi-res loss, freezing,
+   EMA, clip, warmup; batch 128 of 512 synthetic CIFAR-shaped images)
+   through four stages of 8 steps, stopping and resuming at every stage
+   boundary; check finite losses, 0, 8, 8, 8 kernel launches, frozen
+   parameters and their EMA unchanged, trainable ones (the kept-trainable
+   upsample among them) moved; sample from the EMA parameters with DDPM
+   (T = 1000), DDIM (50 steps) and DPM-Solver (20 steps), timed; and the
+   trained model's fp32 forward on the card against the CPU;
+5. time the ``Unetbase-64`` forward at the ``bench.py`` protocol (batch 8,
    (8, 4, 128, 128, 3) fp32) with CUDA events.
 
-The line before the last is ``nvidia-smi``'s name and power limit; the one
-before that, the kernels' JSON record; the last line,
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+Kernel launches are counted on each training path alone (the count is set
+to 0 just before it and read just after) and printed per path; the
+kernels' JSON record carries their sum.  The line before the last is
+``nvidia-smi``'s name and power limit; the one before that, the kernels'
+JSON record; the last line, ``{"ok": true, "device": {...}}``.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -102,15 +115,18 @@ def phase_kernel(device) -> dict:
             x = store[misalign:].view(shape)
         return x
 
-    # (shape, n_levels, dtype, misalign): the training path's shapes, the
-    # CIFAR shape, bf16, a ragged level, a generic channel count, spans off
-    # a 16-byte boundary, and shapes whose plan splits the width
+    # (shape, n_levels, dtype, misalign): the PDE path's shapes, the DDPM
+    # path's CIFAR shapes (stages 3, 2, 1), bf16, a ragged level, a generic
+    # channel count, spans off a 16-byte boundary, and shapes whose plan
+    # splits the width
     cases = [((8, 128, 128, 3), 4, torch.float32, 0),
              ((8, 64, 64, 3), 3, torch.float32, 0),
              ((8, 32, 32, 3), 2, torch.float32, 0),
              ((8, 16, 16, 3), 1, torch.float32, 0),
              ((8, 128, 128, 3), 4, torch.bfloat16, 0),
              ((128, 32, 32, 3), 4, torch.float32, 0),
+             ((128, 16, 16, 3), 3, torch.float32, 0),
+             ((128, 8, 8, 3), 2, torch.float32, 0),
              ((128, 32, 32, 3), 4, torch.bfloat16, 0),
              ((2, 32, 64, 5), 4, torch.float32, 0),
              ((3, 40, 24, 40), 4, torch.float32, 0),
@@ -159,9 +175,25 @@ def phase_kernel(device) -> dict:
         raise AssertionError(f"multires_targets_traj disagrees: {errs}")
     max_err = max(max_err, max(errs))
 
-    # timing: the main path's largest call, then the CIFAR shape
+    # the DDPM loss's call: noise targets at the staged CIFAR shapes
+    for shape, nd in (((128, 8, 8, 3), 2), ((128, 16, 16, 3), 1),
+                      ((128, 32, 32, 3), 0)):
+        noise = rand(shape)
+        out = wavelet.multires_targets(noise, 4, nd,
+                                       pyramid_fn=haar.haar_pyramid)
+        ref = wavelet.multires_targets(noise, 4, nd)
+        errs = [float((a - b).abs().max()) for a, b in zip(out, ref)]
+        log(f"[kernel] multires_targets {shape} L{4 - nd}: max abs err per "
+            f"level {errs} (tol {FP32_TOL:g})")
+        if len(out) != 4 - nd or max(errs) > FP32_TOL:
+            raise AssertionError(f"multires_targets disagrees: {errs}")
+        max_err = max(max_err, max(errs))
+
+    # timing: the PDE path's largest call, then the DDPM path's three
     main = time_pyramid(haar, rand((8, 128, 128, 3)), 4)
-    time_pyramid(haar, rand((128, 32, 32, 3)), 4)
+    for shape, n_levels in (((128, 32, 32, 3), 4), ((128, 16, 16, 3), 3),
+                            ((128, 8, 8, 3), 2)):
+        time_pyramid(haar, rand(shape), n_levels)
     return dict(name="haar_pyramid", route="cuda",
                 source="unet_design_tpu_torch/csrc/haar_pyramid.cu",
                 replaces=TPU_KERNEL, launches=None, max_abs_err=max_err,
@@ -339,6 +371,145 @@ def phase_slice() -> int:
     return launches
 
 
+DDPM_STEPS = 8          # per stage, 4 stages
+SAMPLE_BATCH = 16
+
+
+def _ddpm_config(logdir: str, stage: int):
+    """``configs/diff_cifar_staged.yaml``'s model and recipe, written out
+    (the card's machine need not have a YAML reader), on 512 synthetic
+    CIFAR-shaped images, ``DDPM_STEPS`` steps a stage; the run stops after
+    ``stage`` and a later call resumes it."""
+    from unet_design_tpu_torch.tasks import diff_cifar
+    cfg = diff_cifar.Config()
+    cfg.device = "cuda"
+    m = cfg.model
+    m.ch, m.ch_mult, m.attn, m.num_res_blocks = 128, [1, 2, 2, 2], [1], 2
+    m.dropout, m.dwt_encoder, m.multi_res_loss, m.use_bf16 = \
+        0.1, True, True, True
+    d = cfg.diffusion
+    d.beta_1, d.beta_T, d.T = 1e-4, 0.02, 1000
+    d.mean_type, d.var_type = "epsilon", "fixedlarge"
+    cfg.data.dataset, cfg.data.synthetic_size = "synthetic", 512
+    cfg.data.batch_size = 128
+    t = cfg.train
+    t.num_iterations_list = [DDPM_STEPS] * 4
+    t.lr, t.warmup, t.grad_clip, t.ema_decay = 2e-4, 5000, 1.0, 0.9999
+    t.freeze_lower_res = True
+    t.metrics_every_iters = 1
+    t.stop_after_steps = DDPM_STEPS * (stage + 1)
+    t.resume = stage > 0
+    t.logdir = logdir
+    return cfg
+
+
+def phase_ddpm() -> int:
+    from unet_design_tpu_torch.ops import haar
+    from unet_design_tpu_torch.process import diffusion
+    from unet_design_tpu_torch.tasks import diff_cifar
+    from unet_design_tpu_torch.train import freezing
+
+    logdir = os.path.join(HERE, "runs", "chip_smoke_ddpm")
+    shutil.rmtree(logdir, ignore_errors=True)
+    snapshots, per_stage = [], []
+    state = None
+    haar.launches = 0   # the DDPM path starts here
+    for stage in range(4):
+        before = haar.launches
+        state = diff_cifar.train(_ddpm_config(logdir, stage))
+        per_stage.append(haar.launches - before)
+        snapshots.append((
+            {k: v.detach().clone() for k, v in
+             state.model.state_dict().items()},
+            {k: v.clone() for k, v in state.ema.items()}))
+    launches = haar.launches  # the DDPM path ends here
+
+    records = [json.loads(l) for l in open(os.path.join(logdir,
+                                                        "metrics.jsonl"))]
+    losses = [r["train/loss"] for r in records if "train/loss" in r]
+    norms = [r["train/grad_norm"] for r in records if "train/loss" in r]
+    sps = [r["train/steps_per_sec"] for r in records
+           if "train/steps_per_sec" in r]
+    log(f"[ddpm] per-step train/loss {[round(l, 4) for l in losses]}")
+    log(f"[ddpm] per-step train/grad_norm {[round(g, 4) for g in norms]}")
+    log(f"[ddpm] per-stage steps/s {sps} (batch 128, bf16; stage 0 at 4x4 "
+        f"... stage 3 at 32x32; each stage's first step included) on "
+        f"{card_line()}")
+    log(f"[ddpm] haar_pyramid launches per stage {per_stage}")
+    if len(losses) != 4 * DDPM_STEPS or not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"losses: {losses}, grad norms: {norms}")
+    if len(sps) != 4:
+        raise AssertionError(f"steps/s per stage: {sps}")
+    if per_stage != [0] + [DDPM_STEPS] * 3:
+        raise AssertionError(f"expected 0, {DDPM_STEPS}, {DDPM_STEPS}, "
+                             f"{DDPM_STEPS} launches, got {per_stage}")
+
+    names = list(snapshots[0][0])
+    for stage in range(1, 4):
+        labels = freezing.multires_unet_labels(names, 4, stage + 1)
+        (p0, e0), (p1, e1) = snapshots[stage - 1], snapshots[stage]
+        frozen = [n for n, l in labels.items() if l == freezing.FROZEN]
+        moved = [n for n in frozen if not (torch.equal(p0[n], p1[n])
+                                           and torch.equal(e0[n], e1[n]))]
+        trained = [n for n, l in labels.items() if l == freezing.TRAIN
+                   and not torch.equal(p0[n], p1[n])]
+        upsample = f"up_{4 - stage}_upsample.conv.weight"
+        log(f"[ddpm] stage {stage}: {len(frozen)} frozen tensors and their "
+            f"EMA unchanged, {len(trained)} trainable tensors updated "
+            f"({upsample} among them: {upsample in trained})")
+        if moved or not frozen or upsample not in trained:
+            raise AssertionError(f"stage {stage}: frozen tensors moved "
+                                 f"{moved[:5]}, trained {len(trained)}")
+
+    # the three samplers on the EMA parameters, full depth
+    cfg = _ddpm_config(logdir, 3)
+    model = state.model.eval()
+    model.load_state_dict(state.ema)
+    sch = diffusion.DDPMSchedule.create(1e-4, 0.02, 1000).to("cuda")
+    gen = torch.Generator("cuda").manual_seed(0)
+    x_T = torch.randn((SAMPLE_BATCH, 32, 32, 3), generator=gen,
+                      device="cuda")
+    for kind, steps in (("ddpm", 1000), ("ddim", 50), ("dpm_solver", 20)):
+        cfg.diffusion.sampler, cfg.diffusion.sample_steps = kind, steps
+        sampler = diff_cifar.make_sampler(cfg, model, sch, 4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x0 = sampler(x_T, generator=gen)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        log(f"[ddpm] {kind} sampler, {steps} steps, batch {SAMPLE_BATCH} "
+            f"32x32, bf16 EMA model: {secs:.3f} s on {card_line()}")
+        # the samplers clamp to [-1, 1]: shape and finiteness carry the check
+        if x0.shape != x_T.shape or not torch.isfinite(x0).all():
+            raise AssertionError(f"{kind} samples: {tuple(x0.shape)}, "
+                                 f"finite {bool(torch.isfinite(x0).all())}")
+
+    # the trained parameters in an fp32 model, on the card and on the CPU
+    cfg.model.use_bf16 = False
+    trained = snapshots[-1][0]
+    card = diff_cifar.build_model(cfg)
+    card.load_state_dict(trained)
+    card = card.cuda().eval()
+    cpu = diff_cifar.build_model(cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in trained.items()})
+    cpu.eval()
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32))
+    t = torch.tensor([3, 700])
+    with torch.no_grad():
+        out = card(x.cuda(), t.cuda())
+        ref = cpu(x, t)
+    for a, b in zip(out, ref, strict=True):
+        err = float((a.cpu() - b).abs().max())
+        scale = float(b.abs().max())
+        log(f"[ddpm] fp32 forward {tuple(a.shape)} card vs CPU: max abs err "
+            f"{err:.3g} (scale {scale:.3g}, tol 1e-4 relative)")
+        if not torch.isfinite(a).all() or err > 1e-4 * max(scale, 1e-6):
+            raise AssertionError(f"card forward disagrees with CPU: {err}")
+    shutil.rmtree(logdir, ignore_errors=True)
+    return launches
+
+
 def phase_forward(device) -> None:
     from unet_design_tpu_torch.models import registry
     from unet_design_tpu_torch.ops import blocks
@@ -366,10 +537,21 @@ def main() -> int:
     pde.resolve_device("cuda")  # TF32 off for every phase
     log("[setup] TF32 off: fp32 convolutions and matmuls run in full fp32")
     t0 = time.perf_counter()
-    phase_build()
-    record = phase_kernel(device)
-    record["launches"] = phase_slice()
-    phase_forward(device)
+
+    def timed(name, fn, *args):
+        start = time.perf_counter()
+        out = fn(*args)
+        log(f"[{name}] phase {time.perf_counter() - start:.1f} s")
+        return out
+
+    timed("build", phase_build)
+    record = timed("kernel", phase_kernel, device)
+    pde_launches = timed("slice", phase_slice)
+    ddpm_launches = timed("ddpm", phase_ddpm)
+    log(f"[launches] haar_pyramid per path: PDE staged training "
+        f"{pde_launches}, DDPM staged training {ddpm_launches}")
+    record["launches"] = pde_launches + ddpm_launches
+    timed("forward", phase_forward, device)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [record]}))
     print(card_line())

@@ -16,6 +16,7 @@ import torch
 from unet_design_tpu.ops import blocks as jb
 from unet_design_tpu_torch.models import convert
 from unet_design_tpu_torch.ops import blocks as tb
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

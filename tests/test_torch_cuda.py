@@ -1,4 +1,5 @@
-"""The port's CUDA kernel against its plain version, on the card.
+"""The port's CUDA kernel against its plain version, and the DDPM slice's
+model and trainer, on the card.
 
 Marked ``cuda``: each test skips where no CUDA device is present (the CPU
 tier-1 run).  On a machine with an H100 and ``nvcc``, run
@@ -6,11 +7,13 @@ tier-1 run).  On a machine with an H100 and ``nvcc``, run
 (``--noconftest``: the shared conftest configures JAX, which that machine
 need not have).  This file imports no JAX.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
 
-from unet_design_tpu_torch.ops import haar, wavelet
+from unet_design_tpu_torch.ops import blocks, haar, wavelet
 
 pytestmark = pytest.mark.cuda
 
@@ -123,3 +126,71 @@ def test_plan_is_made_once_and_launch_floor_runs(cuda):
     haar.launch_empty(p)
     torch.cuda.synchronize()
     assert haar.launches == before
+
+
+@pytest.mark.parametrize("shape,n_downsample", [
+    ((128, 8, 8, 3), 2),      # stage 1 of 4: L2
+    ((128, 16, 16, 3), 1),    # stage 2: L3
+    ((128, 32, 32, 3), 0)])   # stage 3: L4
+def test_multires_targets_through_kernel(cuda, shape, n_downsample):
+    """The DDPM loss's noise targets at CIFAR's staged shapes: one launch,
+    the plain ``dwt_pyramid``'s values (it takes a mean where the kernel
+    adds in pairs, hence 1e-6)."""
+    noise = torch.randn(shape, device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(0))
+    before = haar.launches
+    out = wavelet.multires_targets(noise, 4, n_downsample,
+                                   pyramid_fn=haar.haar_pyramid)
+    assert haar.launches == before + 1
+    ref = wavelet.multires_targets(noise, 4, n_downsample)
+    assert len(out) == len(ref) == 4 - n_downsample
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+def _small_multires(dtype):
+    from unet_design_tpu_torch.models.multires_unet import MultiResUNet
+    m = MultiResUNet(ch=32, ch_mult=(1, 2, 2, 2), attn=(1,),
+                     num_res_blocks=2, dropout=0.0, dwt_encoder=True,
+                     multi_res_loss=True, dtype=dtype)
+    # LeCun-normal kernels: O(1) outputs (the DDPM init's 1e-5 gains on
+    # the last convs would make them ~1e-5)
+    return blocks.flax_default_init_(m, torch.Generator().manual_seed(0))
+
+
+def test_bf16_multires_unet_forward_matches_cpu(cuda):
+    """bf16 on the card (cuDNN) against bf16 on the CPU: both round at
+    every layer but accumulate in other orders; held at 0.03 of the output
+    scale, the tolerance of the bf16 comparison with the JAX package
+    (``tests/test_torch_multires_unet.py``)."""
+    m = _small_multires(torch.bfloat16).eval()
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (4, 32, 32, 3)).astype(np.float32))
+    t = torch.tensor([0, 10, 500, 999])
+    with torch.no_grad():
+        ref = m(x, t)
+        out = m.to(cuda)(x.to(cuda), t.to(cuda))
+    for a, b in zip(out, ref, strict=True):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all()
+        scale = float(b.float().abs().max())
+        err = float((a.cpu().float() - b.float()).abs().max())
+        assert err <= 0.03 * scale, (err, scale)
+
+
+def test_full_width_ddpm_train_step(cuda, tmp_path):
+    """One step of ``configs/diff_cifar_staged.yaml``'s model (ch 128,
+    bf16) at full depth, batch 128: a finite loss, one kernel launch."""
+    from unet_design_tpu_torch.tasks import diff_cifar
+    cfg = diff_cifar.Config()
+    cfg.model.dwt_encoder = True
+    cfg.model.multi_res_loss = True
+    cfg.model.use_bf16 = True
+    cfg.train.num_iterations_list = [1]
+    cfg.train.metrics_every_iters = 1
+    cfg.train.logdir = str(tmp_path)
+    before = haar.launches
+    state = diff_cifar.train(cfg)
+    assert haar.launches == before + 1 and state.step == 1
+    rec = json.loads(open(tmp_path / "metrics.jsonl").readline())
+    assert np.isfinite(rec["train/loss"]) and np.isfinite(
+        rec["train/grad_norm"])

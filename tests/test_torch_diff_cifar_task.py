@@ -1,0 +1,468 @@
+"""Port parity: the DDPM trainer (``tasks/diff_cifar.py``) and what it is
+built from (freeze labels, EMA, warmup, stages, gradient clipping, batch
+stream, flips, CIFAR-10 files, run configs) against the JAX package, and
+the port's own resume contract.
+
+The slice as a whole: the JAX trainer and the port train the same tiny
+staged Multi-ResNet DDPM (DWT encoder, multi-res loss, freezing, EMA, clip,
+warmup; 2 stages x 3 steps, dropout 0) from the same init (the JAX init,
+recomputed from ``PRNGKey(seed)`` as ``tasks/diff_cifar.py`` does, carried
+over through ``params=``), on the same numpy batch and flip streams, with
+the JAX trainer's per-step ``(t, noise)`` draws replayed through the port's
+``draw_t_noise``.  Per-step losses and gradient norms agree at rtol 1e-4,
+final parameters and EMA at 1e-4.
+"""
+import json
+import os
+import pickle
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from unet_design_tpu.data import image as jimage
+from unet_design_tpu.data import loader as jloader
+from unet_design_tpu.models.multires_unet import MultiResUNet as JModel
+from unet_design_tpu.tasks import diff_cifar as jdc
+from unet_design_tpu.train import ema as jema
+from unet_design_tpu.train import freezing as jfreezing
+from unet_design_tpu.train import schedules as jschedules
+from unet_design_tpu.train import trainer as jtrainer
+from unet_design_tpu.utils import config as jconfig
+from unet_design_tpu_torch.data import image as timage
+from unet_design_tpu_torch.data import loader as tloader
+from unet_design_tpu_torch.models import convert
+from unet_design_tpu_torch.models.multires_unet import MultiResUNet as TModel
+from unet_design_tpu_torch.tasks import diff_cifar as tdc
+from unet_design_tpu_torch.train import ema as tema
+from unet_design_tpu_torch.train import freezing as tfreezing
+from unet_design_tpu_torch.train import schedules as tschedules
+from unet_design_tpu_torch.train import trainer as ttrainer
+from unet_design_tpu_torch.utils import config as tconfig
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def _no_stop_files(monkeypatch):
+    """The shared conftest clears the JAX trainers' stop files; clear the
+    port's too."""
+    monkeypatch.setattr(tdc, "STOP_FILES", ())
+    monkeypatch.setattr(ttrainer, "STOP_FILES", ())
+
+
+def _x(shape, seed=0):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+# ------------------------------------------------- freezing, EMA, schedule
+
+@pytest.mark.parametrize("n_levels_used", [1, 2, 3, 4])
+@pytest.mark.parametrize("dwt", [True, False])
+def test_multires_unet_labels(n_levels_used, dwt):
+    """Each parameter gets the JAX label of the flax leaf it came from,
+    the kept-trainable ``up_{first_frozen}_upsample`` included."""
+    cfg = dict(ch=32, ch_mult=(1, 2, 2, 2), attn=(1,), num_res_blocks=1,
+               dwt_encoder=dwt, multi_res_loss=True)
+    shapes = jax.eval_shape(JModel(**cfg).init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 32, 32, 3)),
+                            jnp.zeros((1,), jnp.int32))["params"]
+    jl = jfreezing.multires_unet_labels(shapes, 4, n_levels_used)
+    want = {convert._torch_key(tuple(k.key for k in path)): lab
+            for path, lab in jax.tree_util.tree_flatten_with_path(jl)[0]}
+    got = tfreezing.multires_unet_labels(
+        [n for n, _ in TModel(**cfg).named_parameters()], 4, n_levels_used)
+    assert got == want
+    if n_levels_used > 1:
+        first = 4 - n_levels_used + 1
+        assert got[f"up_{first}_upsample.conv.weight"] == tfreezing.TRAIN
+        assert got["middle_0.conv1.weight"] == tfreezing.FROZEN
+
+
+def test_ema_update():
+    """Masked EMA: frozen names keep their value."""
+    rng = np.random.default_rng(0)
+    ema = {k: rng.standard_normal((3, 4)).astype(np.float32)
+           for k in ("a", "b", "c")}
+    new = {k: rng.standard_normal((3, 4)).astype(np.float32) for k in ema}
+    mask = {"a": True, "b": False, "c": True}
+    ref = jema.ema_update({k: jnp.asarray(v) for k, v in ema.items()},
+                          {k: jnp.asarray(v) for k, v in new.items()},
+                          0.9, mask)
+    got = {k: torch.from_numpy(v.copy()) for k, v in ema.items()}
+    tema.ema_update(got, {k: torch.from_numpy(v) for k, v in new.items()},
+                    0.9, [k for k, m in mask.items() if m])
+    for k in ema:
+        np.testing.assert_allclose(np.asarray(ref[k]), got[k].numpy(),
+                                   rtol=1e-6, atol=1e-7)
+    assert torch.equal(got["b"], torch.from_numpy(ema["b"]))
+
+
+def test_warmup_lr():
+    js, ts = jschedules.warmup_lr(2e-4, 5), tschedules.warmup_lr(2e-4, 5)
+    for step in range(12):
+        np.testing.assert_allclose(float(js(step)), ts(step), rtol=1e-6)
+    assert ts(0) == 0.0
+
+
+@pytest.mark.parametrize("schedule", [[7], [1, 2], [1, 2, 3, 4], [5, 0, 6]])
+def test_stage_spec(schedule):
+    want = jtrainer.StageSpec.from_schedule(schedule, 4)
+    got = ttrainer.StageSpec.from_schedule(schedule, 4)
+    assert [vars(s) for s in got] == [vars(s) for s in want]
+
+
+def test_stage_spec_rejects_more_stages_than_levels():
+    with pytest.raises(ValueError):
+        ttrainer.StageSpec.from_schedule([1, 1, 1], 2)
+
+
+@pytest.mark.parametrize("max_norm", [0.5, 100.0])
+def test_grad_clip_and_global_norm(max_norm):
+    """``optax.global_norm`` and ``clip_by_global_norm``: scaled when the
+    norm reaches the limit, untouched below it."""
+    rng = np.random.default_rng(1)
+    grads = [rng.standard_normal(s).astype(np.float32)
+             for s in ((3, 4), (5,), (2, 2, 2))]
+    jg = [jnp.asarray(g) for g in grads]
+    ref, _ = optax.clip_by_global_norm(max_norm).update(jg, None)
+    tg = [torch.from_numpy(g.copy()) for g in grads]
+    np.testing.assert_allclose(float(optax.global_norm(jg)),
+                               float(ttrainer.global_norm(tg + [None])),
+                               rtol=1e-6)
+    ttrainer.clip_by_global_norm_(tg + [None], max_norm)
+    for a, b in zip(ref, tg):
+        np.testing.assert_allclose(np.asarray(a), b.numpy(), rtol=1e-6,
+                                   atol=1e-7)
+
+
+# -------------------------------------------------------------------- data
+
+@pytest.mark.parametrize("n,bs,start", [(10, 3, 0), (10, 3, 7), (8, 4, 5),
+                                        (9, 4, 2)])
+def test_infinite_batches(n, bs, start):
+    """The same endless stream, fast-forwarded by ``start_step``."""
+    arr = np.arange(n)
+    ref = jloader.infinite_batches([arr], bs, seed=3, start_step=start)
+    got = tloader.infinite_batches([arr], bs, seed=3, start_step=start)
+    for _ in range(9):
+        np.testing.assert_array_equal(next(ref)[0], next(got)[0])
+    full = tloader.infinite_batches([arr], bs, seed=3)
+    for _ in range(start):
+        next(full)
+    np.testing.assert_array_equal(
+        next(full)[0],
+        next(tloader.infinite_batches([arr], bs, seed=3,
+                                      start_step=start))[0])
+
+
+def test_infinite_batches_need_one_batch():
+    """Fewer items than a batch would give an endless stream of nothing."""
+    with pytest.raises(ValueError):
+        next(tloader.infinite_batches([np.arange(5)], 8))
+
+
+def test_epoch_batches_keep_tail():
+    arr = np.arange(7)
+    ref = list(jloader.epoch_batches([arr], 3, np.random.default_rng(1),
+                                     drop_last=False))
+    got = list(tloader.epoch_batches([arr], 3, np.random.default_rng(1),
+                                     drop_last=False))
+    assert [len(b[0]) for b in got] == [3, 3, 1]
+    for a, b in zip(ref, got, strict=True):
+        np.testing.assert_array_equal(a[0], b[0])
+
+
+def test_flips_and_synthetic_data():
+    x, labels = timage.synthetic_cifar10(16, seed=2)
+    jx, jlabels = jimage.synthetic_cifar10(16, seed=2)
+    np.testing.assert_array_equal(x, jx)
+    np.testing.assert_array_equal(labels, jlabels)
+    assert x.shape == (16, 32, 32, 3) and x.dtype == np.float32
+    np.testing.assert_array_equal(
+        timage.random_horizontal_flip(torch.from_numpy(x),
+                                      np.random.default_rng((0, 5))).numpy(),
+        jimage.random_horizontal_flip(jx, np.random.default_rng((0, 5))))
+
+
+def _write_cifar_batches(root, n=4, seed=0):
+    rng = np.random.default_rng(seed)
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        with open(os.path.join(root, name), "wb") as f:
+            pickle.dump({b"data": rng.integers(0, 256, (n, 3072),
+                                               dtype=np.uint8),
+                         b"labels": rng.integers(0, 10, n).tolist()}, f)
+
+
+@pytest.mark.parametrize("kind", ["npz", "pickle"])
+def test_load_cifar10(tmp_path, kind):
+    root = str(tmp_path)
+    if kind == "npz":
+        rng = np.random.default_rng(1)
+        np.savez(os.path.join(root, "cifar10_train.npz"),
+                 images=rng.integers(0, 256, (6, 32, 32, 3), dtype=np.uint8),
+                 labels=rng.integers(0, 10, 6))
+    else:
+        _write_cifar_batches(root)
+    x, labels = timage.load_cifar10(root)
+    jx, jlabels = jimage.load_cifar10(root)
+    np.testing.assert_array_equal(x, jx)
+    np.testing.assert_array_equal(labels, jlabels)
+    assert x.min() >= -1 and x.max() <= 1 and x.shape[1:] == (32, 32, 3)
+    if kind == "pickle":
+        np.testing.assert_array_equal(timage.load_cifar10(root, False)[0],
+                                      jimage.load_cifar10(root, False)[0])
+    with pytest.raises(FileNotFoundError):
+        timage.load_cifar10(str(tmp_path / "none"))
+
+
+# ------------------------------------------------------------------ config
+
+def test_cifar_config_parses():
+    path = os.path.join(REPO, "configs", "diff_cifar_staged.yaml")
+    args = ["--config", path, "train.seed=3", "data.batch_size=4"]
+    ours = tconfig.to_dict(tconfig.parse_cli(tdc.Config, args))
+    ref = jconfig.to_dict(jconfig.parse_cli(jdc.Config, args))
+    assert ours.pop("device") == "cuda"
+    assert ours == ref
+
+
+def test_run_config_save_and_restore(tmp_path):
+    """``config.yaml`` is JSON, which the JAX package's YAML reader takes;
+    a ``train_id`` restore replaces the config but keeps the new run's
+    logdir, stop point and device, like the JAX package's."""
+    run = tmp_path / "run"
+    run.mkdir()
+    saved = tconfig.parse_cli(tdc.Config, ["model.ch=64", "train.seed=9",
+                                           "train.stop_after_steps=5"])
+    tconfig.save_yaml(saved, str(run / "config.yaml"))
+    json.loads((run / "config.yaml").read_text())
+    back = tconfig.from_yaml(tdc.Config, str(run / "config.yaml"))
+    assert tconfig.to_dict(back) == tconfig.to_dict(saved)
+    # a run directory the JAX trainer wrote (YAML) restores too
+    jrun = tmp_path / "jax_run"
+    jrun.mkdir()
+    jconfig.save_yaml(jconfig.parse_cli(jdc.Config, ["model.ch=16"]),
+                      str(jrun / "config.yaml"))
+    assert tconfig.from_yaml(tdc.Config,
+                             str(jrun / "config.yaml")).model.ch == 16
+
+    for src, ch in ((run, 64), (jrun, 16)):
+        cli = ["train.train_id=" + str(src), "train.logdir=new",
+               "train.stop_after_steps=7", "model.ch=8", "device=cpu"]
+        got = tconfig.restore_run_config(tconfig.parse_cli(tdc.Config, cli))
+        assert got.model.ch == ch and got.train.train_id == str(src)
+        assert (got.train.logdir, got.train.stop_after_steps, got.device,
+                got.train.resume) == ("new", 7, "cpu", False)
+    # the same fields as the JAX package's restore of the same run
+    want = jconfig.restore_run_config(jconfig.parse_cli(jdc.Config,
+                                                        cli[:-1]))
+    got_d, want_d = tconfig.to_dict(got), jconfig.to_dict(want)
+    got_d.pop("device")
+    assert got_d == want_d
+    assert tconfig.resolve_run_dir(str(run)) == str(run)
+    with pytest.raises(FileNotFoundError):
+        tconfig.resolve_run_dir(str(tmp_path / "missing"))
+
+
+@pytest.mark.parametrize("override", ["train.eval_step=10",
+                                      "train.test_id=some_run",
+                                      "train.sample_step=10",
+                                      "parallel.data=2",
+                                      "data.device_cache=false"])
+def test_unported_options_raise(tmp_path, override):
+    cfg = tconfig.parse_cli(tdc.Config, [override, "device=cpu",
+                                         f"train.logdir={tmp_path}"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdc.train(cfg)
+
+
+@pytest.mark.parametrize("override", ["train.num_iterations_list=[1,1,1]",
+                                      "train.freeze_lower_res=true",
+                                      "diffusion.mean_type=v",
+                                      "diffusion.sampler=euler",
+                                      "diffusion.sample_steps=1"])
+def test_bad_configs_raise(override):
+    cfg = tconfig.parse_cli(tdc.Config, ["model.ch_mult=[1,2]", override])
+    with pytest.raises(ValueError):
+        tdc.check_config(cfg)
+
+
+def test_cuda_device_without_gpu_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = _tiny_cfg(tmp_path, "nogpu")
+    cfg.device = "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tdc.train(cfg)
+
+
+# --------------------------------------------------------------- the slice
+
+def _tiny_cfg(tmp_path, name, mod=tdc):
+    cfg = mod.Config()
+    cfg.model.ch = 32
+    cfg.model.ch_mult = [1, 2]
+    cfg.model.attn = [1]
+    cfg.model.num_res_blocks = 1
+    cfg.model.dropout = 0.0
+    cfg.model.dwt_encoder = True
+    cfg.model.multi_res_loss = True
+    cfg.diffusion.T = 100
+    cfg.data.batch_size = 2
+    cfg.data.synthetic_size = 8
+    cfg.train.num_iterations_list = [3, 3]
+    cfg.train.freeze_lower_res = True
+    cfg.train.warmup = 2
+    cfg.train.metrics_every_iters = 1
+    cfg.train.logdir = str(tmp_path / name)
+    if mod is tdc:
+        cfg.device = "cpu"
+    return cfg
+
+
+def _records(logdir):
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        return [json.loads(l) for l in f]
+
+
+def _jax_draws(cfg):
+    """Global step -> the JAX trainer's ``(t, noise)``: a stage key
+    ``fold_in(rng, 10_000 + stage)``, one split a step, the loss's split
+    into a timestep and a noise key (``tasks/diff_cifar.py:311``,
+    ``train/trainer.py:108``, ``process/diffusion.py:112-114``)."""
+    _, rng = jax.random.split(jax.random.PRNGKey(cfg.train.seed))
+    draws, step = {}, 0
+    n_stages = len(cfg.train.num_iterations_list)
+    for stage, iters in enumerate(cfg.train.num_iterations_list):
+        res = 32 >> (n_stages - 1 - stage)
+        key = jax.random.fold_in(rng, 10_000 + stage)
+        for _ in range(iters):
+            key, sub = jax.random.split(key)
+            t_rng, noise_rng = jax.random.split(sub)
+            shape = (cfg.data.batch_size, res, res, 3)
+            draws[step] = (
+                torch.from_numpy(np.array(jax.random.randint(
+                    t_rng, (shape[0],), 0, cfg.diffusion.T))).long(),
+                torch.from_numpy(np.array(jax.random.normal(noise_rng,
+                                                            shape))))
+            step += 1
+    return draws
+
+
+def _moving_cfg(tmp_path, name, mod=tdc):
+    """``_tiny_cfg`` with a learning rate and an EMA decay that move the
+    parameters and their EMA far past the comparison's tolerance."""
+    cfg = _tiny_cfg(tmp_path, name, mod)
+    cfg.train.lr = 3e-3
+    cfg.train.ema_decay = 0.5
+    return cfg
+
+
+def test_staged_training_matches_jax(tmp_path, monkeypatch):
+    jcfg = _moving_cfg(tmp_path, "jax", jdc)
+    jstate = jdc.train(jcfg)
+    # the JAX trainer's init, recomputed as tasks/diff_cifar.py:232-235 does
+    init_rng, _ = jax.random.split(jax.random.PRNGKey(jcfg.train.seed))
+    p0 = jdc.build_model(jcfg).init(init_rng, jnp.zeros((2, 32, 32, 3)),
+                                    jnp.zeros((2,), jnp.int32))["params"]
+    draws = _jax_draws(jcfg)
+
+    def replay(generator, x0, T, step):
+        t, noise = draws[step]
+        assert noise.shape == x0.shape
+        return t, noise
+    monkeypatch.setattr(tdc, "draw_t_noise", replay)
+    sd0 = convert.flax_to_state_dict(jax.tree_util.tree_map(np.asarray, p0))
+    tstate = tdc.train(_moving_cfg(tmp_path, "port"), params=sd0)
+
+    ref = [r for r in _records(jcfg.train.logdir) if "train/loss" in r]
+    got = [r for r in _records(str(tmp_path / "port")) if "train/loss" in r]
+    assert [r["step"] for r in got] == [r["step"] for r in ref] == \
+        list(range(6))
+    for a, b in zip(ref, got):
+        assert set(a) == set(b)
+        for k in a:
+            if k.startswith("train/"):
+                np.testing.assert_allclose(b[k], a[k], rtol=1e-4,
+                                           err_msg=f"step {a['step']} {k}")
+    for name, want_tree, got_sd in (
+            ("params", jstate.params, tstate.model.state_dict()),
+            ("ema", jstate.ema_params, tstate.ema)):
+        want = convert.flax_to_state_dict(
+            jax.tree_util.tree_map(np.asarray, want_tree))
+        assert set(got_sd) == set(want)
+        for k in want:
+            np.testing.assert_allclose(got_sd[k].numpy(), want[k].numpy(),
+                                       rtol=1e-4, atol=1e-4,
+                                       err_msg=f"{name} {k}")
+        # the comparison sees the update: the parameters and their EMA
+        # (trainable in the last stage) moved by far more than its tolerance
+        moved = max(float((got_sd[k] - sd0[k]).abs().max()) for k in want)
+        assert moved > 2e-3, (name, moved)
+    assert tstate.step == 6
+
+
+def _assert_same_state(a, b):
+    for (ka, va), (kb, vb) in zip(a.model.state_dict().items(),
+                                  b.model.state_dict().items(), strict=True):
+        assert ka == kb and torch.equal(va, vb), ka
+    for k in a.ema:
+        assert torch.equal(a.ema[k], b.ema[k]), k
+    sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
+    assert sa["param_groups"] == sb["param_groups"]
+    for i in sa["state"]:
+        for k in sa["state"][i]:
+            assert torch.equal(torch.as_tensor(sa["state"][i][k]),
+                               torch.as_tensor(sb["state"][i][k])), (i, k)
+
+
+def _resume_cfg(tmp_path, name):
+    cfg = _tiny_cfg(tmp_path, name)
+    cfg.model.dropout = 0.1   # the dropout masks' generator must resume too
+    return cfg
+
+
+@pytest.mark.parametrize("stop_at", [2, 3])
+def test_resume_equals_uninterrupted(tmp_path, stop_at):
+    """Stop mid-stage (2) or at the stage boundary (3), resume: parameters,
+    EMA and optimizer state are bit-identical to an uninterrupted run, and
+    so is a continuation by ``train_id`` into a new run directory."""
+    full = tdc.train(_resume_cfg(tmp_path, "full"))
+    cfg = _resume_cfg(tmp_path, "int")
+    cfg.train.stop_after_steps = stop_at
+    assert tdc.train(cfg).step == stop_at
+    cfg2 = _resume_cfg(tmp_path, "int")
+    cfg2.train.resume = True
+    resumed = tdc.train(cfg2)
+    assert resumed.step == full.step == 6
+    _assert_same_state(full, resumed)
+    cfg3 = _resume_cfg(tmp_path, "by_id")
+    cfg3.train.train_id = str(tmp_path / "int")
+    cfg3.train.restore_iter = stop_at
+    _assert_same_state(full, tdc.train(cfg3))
+
+
+def test_stop_file_and_cli(tmp_path, monkeypatch):
+    """A stop file in the logdir checkpoints after the current step and
+    returns; the command line runs the same trainer."""
+    cfg = _tiny_cfg(tmp_path, "stopped")
+    os.makedirs(cfg.train.logdir)
+    open(os.path.join(cfg.train.logdir, "STOP"), "w").close()
+    monkeypatch.setattr(tdc, "STOP_FILES", ("STOP",))
+    assert tdc.train(cfg).step == 1
+    assert os.path.exists(os.path.join(cfg.train.logdir, "ckpt",
+                                       "step_1.pt"))
+    monkeypatch.setattr(tdc, "STOP_FILES", ())
+    tdc.main(["device=cpu", "model.ch=32", "model.ch_mult=[1,2]",
+              "model.num_res_blocks=1", "data.batch_size=2",
+              "data.synthetic_size=4", "train.num_iterations_list=[2]",
+              "diffusion.T=10", f"train.logdir={tmp_path / 'cli'}"])
+    recs = _records(str(tmp_path / "cli"))
+    assert [r["step"] for r in recs if "train/loss" in r] == [0]
+    assert np.isfinite(recs[0]["train/loss"])

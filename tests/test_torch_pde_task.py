@@ -44,6 +44,7 @@ from unet_design_tpu_torch.train import trainer as ttrainer
 from unet_design_tpu_torch.train.checkpoint import CheckpointManager
 from unet_design_tpu_torch.utils import config as tconfig
 from unet_design_tpu_torch.utils.logging import MetricsLogger
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -21,6 +21,7 @@ from unet_design_tpu_torch.models import common, convert, registry
 from unet_design_tpu_torch.models import unetbase as tu
 from unet_design_tpu_torch.ops import wavelet as tw
 from unet_design_tpu_torch.process import losses as tlosses
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -19,6 +19,7 @@ import torch
 from unet_design_tpu.ops import wavelet as jw
 from unet_design_tpu.ops.pallas import haar as jhaar
 from unet_design_tpu_torch.ops import haar, wavelet as tw
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 

@@ -149,12 +149,14 @@ def device_us(fn, calls: int = 50) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    # device-side rows only: an operator's row repeats its kernels' time
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    if not total:
+    # each device event's own nanoseconds: key_averages() keeps whole
+    # microseconds per event in recent PyTorch, which reads a 0.87 us
+    # kernel as 0
+    total_ns = sum(e.duration_ns() for e in prof.profiler.kineto_results
+                   .events() if e.device_type() == DeviceType.CUDA)
+    if not total_ns:
         raise RuntimeError("torch.profiler recorded no device time")
-    return total / calls
+    return total_ns / 1e3 / calls
 
 
 def _kernel_class(name: str) -> str:

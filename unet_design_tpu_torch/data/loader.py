@@ -1,10 +1,54 @@
-"""Host-side data utilities (main-path subset of
-``unet_design_tpu/data/loader.py``)."""
+"""Host-side data utilities (``epoch_batches``, ``infinite_batches``,
+``shard_for_process`` of ``unet_design_tpu/data/loader.py``).  The batch
+streams are numpy and seeded, so the port and the JAX package draw the
+same batches."""
 
 from __future__ import annotations
 
 import itertools
-from typing import Any, Sequence
+from typing import Any, Iterator, Optional, Sequence
+
+import numpy as np
+
+
+def epoch_batches(arrays: Sequence[np.ndarray], batch_size: int,
+                  rng: Optional[np.random.Generator] = None,
+                  shuffle: bool = True, drop_last: bool = True
+                  ) -> Iterator[tuple]:
+    """One epoch of (optionally shuffled) aligned batches from host arrays."""
+    n = arrays[0].shape[0]
+    idx = np.arange(n)
+    if shuffle:
+        (rng or np.random.default_rng()).shuffle(idx)
+    end = n - (n % batch_size) if drop_last else n
+    for s in range(0, end, batch_size):
+        sel = idx[s:s + batch_size]
+        yield tuple(a[sel] for a in arrays)
+
+
+def infinite_batches(arrays: Sequence[np.ndarray], batch_size: int,
+                     seed: int = 0, shuffle: bool = True,
+                     start_step: int = 0) -> Iterator[tuple]:
+    """Endless reshuffled epochs (the reference's ``infiniteloop``).
+
+    ``start_step`` fast-forwards the stream to where it would be after that
+    many batches, replaying only the index permutations, so a resumed run
+    consumes the same batches as an uninterrupted one.
+    """
+    rng = np.random.default_rng(seed)
+    n = arrays[0].shape[0]
+    if n < batch_size:
+        raise ValueError(f"{n} items make no batch of {batch_size}")
+    per_epoch = max(1, n // batch_size)  # epoch_batches drops the tail
+    for _ in range(start_step // per_epoch):
+        rng.shuffle(np.arange(n))  # consume exactly one epoch's randomness
+    skip = start_step % per_epoch
+    while True:
+        for i, batch in enumerate(epoch_batches(arrays, batch_size, rng,
+                                                shuffle)):
+            if i >= skip:
+                yield batch
+        skip = 0
 
 
 def shard_for_process(items: Sequence[Any], process_index: int = 0,

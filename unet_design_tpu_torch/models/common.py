@@ -1,4 +1,4 @@
-"""Shared conventions of the PDE models.
+"""Shared conventions of the models.
 
 PDE models take trajectories ``(B, T_history, H, W, C_in)`` and return
 ``(B, T_future, H, W, C_out)`` with ``C = n_scalar + 2 * n_vector``, the
@@ -15,6 +15,11 @@ import torch.nn as nn
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) -> the models' internal NCHW, stored channels_last."""
     return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+
+
+def apply_nhwc(fn, h: torch.Tensor, *args) -> torch.Tensor:
+    """Apply an NHWC function of the ops layer to an NCHW feature map."""
+    return fn(h.permute(0, 2, 3, 1), *args).permute(0, 3, 1, 2)
 
 
 def collapse_time(x: torch.Tensor) -> torch.Tensor:

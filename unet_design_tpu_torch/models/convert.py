@@ -10,16 +10,26 @@ tests use (``tests/test_reference_parity.py::_t2f_conv`` / ``_t2f_tconv``):
   correlates over the output grid, flax over the input grid);
 - a GroupNorm ``scale`` is the torch ``weight``.
 
+- a flax ``Dense`` kernel ``(I, O)`` is a torch ``Linear`` weight
+  ``(O, I)``.
+
 Flax's automatic submodule names map onto the port's attribute names:
 ``Conv_0/1`` -> ``conv1/2``, ``GroupNorm_0/1`` -> ``norm1/2`` (the inner
 ``GroupNorm_0`` of the fp32 wrapper folds away), ``ConvBlock_0`` ->
 ``block``, ``ConvTranspose_0`` -> ``tconv``; named modules (``core``,
-``image_proj_0``, ``up_1_chconv``, ``final_3``, ...) keep their names.
+``image_proj_0``, ``up_1_chconv``, ``final_3``, ``temb_proj``, ...) keep
+their names.  Inside the DDPM blocks the same automatic names mean other
+layers, so there the module they sit in decides (``_SCOPED``):
+``DDPMAttnBlock_0`` -> ``attn`` with ``Conv_0..3`` -> ``q, k, v,
+proj_out``; a ``time_emb_{l}``'s ``Dense_0/1`` -> ``dense1/2``; the one
+``Conv_0`` of a ``down_{l}_downsample`` / ``up_{l}_upsample`` -> ``conv``;
+a ``tail_{l}``'s ``GroupNorm_0`` / ``Conv_0`` -> ``norm`` / ``conv``.
 Input is the nested dict of arrays under flax's ``"params"``.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
@@ -28,7 +38,22 @@ import torch.nn as nn
 
 _RENAME = {"Conv_0": "conv1", "Conv_1": "conv2", "GroupNorm_0": "norm1",
            "GroupNorm_1": "norm2", "ConvBlock_0": "block",
-           "ConvTranspose_0": "tconv"}
+           "ConvTranspose_0": "tconv", "DDPMAttnBlock_0": "attn"}
+_SCOPED = [
+    (re.compile(r"DDPMAttnBlock_0"), {"Conv_0": "q", "Conv_1": "k",
+                                      "Conv_2": "v", "Conv_3": "proj_out",
+                                      "GroupNorm_0": "norm"}),
+    (re.compile(r"time_emb_\d+"), {"Dense_0": "dense1", "Dense_1": "dense2"}),
+    (re.compile(r"(down|up)_\d+_(downsample|upsample)"), {"Conv_0": "conv"}),
+    (re.compile(r"tail_\d+"), {"GroupNorm_0": "norm", "Conv_0": "conv"}),
+]
+
+
+def _rename(parent: str, seg: str) -> str:
+    for pattern, names in _SCOPED:
+        if pattern.fullmatch(parent):
+            return names.get(seg, seg)
+    return _RENAME.get(seg, seg)
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
@@ -45,7 +70,7 @@ def _torch_key(path: Tuple[str, ...]) -> str:
         if (seg == "GroupNorm_0" and i > 0
                 and path[i - 1].startswith("GroupNorm_")):
             continue  # flax nn.GroupNorm inside the fp32 wrapper
-        out.append(_RENAME.get(seg, seg))
+        out.append(_rename(path[i - 1] if i else "", seg))
     leaf = path[-1]
     out.append({"kernel": "weight", "scale": "weight"}.get(leaf, leaf))
     return ".".join(out)
@@ -54,6 +79,8 @@ def _torch_key(path: Tuple[str, ...]) -> str:
 def _torch_value(path: Tuple[str, ...], a: np.ndarray) -> np.ndarray:
     if path[-1] != "kernel":
         return a
+    if a.ndim == 2:                                   # Dense
+        return a.T
     if len(path) > 1 and path[-2] == "ConvTranspose_0":
         return np.transpose(a, (2, 3, 0, 1))[:, :, ::-1, ::-1]
     return np.transpose(a, (3, 2, 0, 1))

@@ -16,7 +16,7 @@ staged-freezing rules (``train/freezing.py``) find each one by name.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Union
+from typing import List, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
@@ -24,11 +24,6 @@ import torch.nn.functional as F
 
 from unet_design_tpu_torch.models import common
 from unet_design_tpu_torch.ops import blocks, wavelet
-
-
-def _nhwc(fn: Callable, h: torch.Tensor, *args) -> torch.Tensor:
-    """Apply an NHWC function of the ops layer to an NCHW feature map."""
-    return fn(h.permute(0, 2, 3, 1), *args).permute(0, 3, 1, 2)
 
 
 class Unetbase(nn.Module):
@@ -164,7 +159,8 @@ class UnetbaseGCore(nn.Module):
         for i in range(entry, self.n_levels):
             if self.dwt_encoder:
                 octaves = 0 if self.no_down_up else 1
-                h = _nhwc(wavelet.dwt_block, h, octaves, self.down_out[i])
+                h = common.apply_nhwc(wavelet.dwt_block, h, octaves,
+                                      self.down_out[i])
             else:
                 if not self.no_down_up:
                     h = F.avg_pool2d(h, 2)
@@ -180,7 +176,7 @@ class UnetbaseGCore(nn.Module):
             else:
                 up = getattr(self, f"up_{j}_chconv")(h)
                 if not self.no_down_up:
-                    up = _nhwc(blocks.nearest_upsample, up, 2)
+                    up = common.apply_nhwc(blocks.nearest_upsample, up, 2)
             up = _match_spatial(up, s.shape[2:])
             if self.no_skip_connection:
                 s = torch.zeros_like(s)

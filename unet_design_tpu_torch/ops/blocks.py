@@ -1,16 +1,30 @@
-"""Neural building blocks of the main path, as ``torch.nn`` modules.
+"""Neural building blocks, as ``torch.nn`` modules.
 
-Port of the pdearena-base subset of ``unet_design_tpu/ops/blocks.py``:
-activations, fp32-statistics GroupNorm, ``ConvBlock`` /
-``PartialResnetConvBlock`` / ``FullResnetConvBlock``
-(``pdearena/modules/twod_unetbase.py:12-162``), nearest upsampling and the
-k2s2 transposed-conv upsample.
+Port of two subsets of ``unet_design_tpu/ops/blocks.py``:
+
+- pdearena base: activations, fp32-statistics GroupNorm, ``ConvBlock`` /
+  ``PartialResnetConvBlock`` / ``FullResnetConvBlock``
+  (``pdearena/modules/twod_unetbase.py:12-162``), nearest upsampling and
+  the k2s2 transposed-conv upsample.  Fresh parameters follow flax's
+  defaults (:func:`flax_default_init_`): LeCun-normal kernels, zero
+  biases, unit GroupNorm scales.
+- diff_cifar DDPM: ``TimeEmbedding``, ``DDPMAttnBlock``, ``DDPMResBlock``,
+  ``Downsample``, ``Upsample`` (``diff_cifar/model.py:9-169``), with their
+  Xavier-uniform init and its per-layer gain (:func:`ddpm_init_`).
 
 Modules take NCHW feature maps (the layout cuDNN is called with); the
 function :func:`nearest_upsample` keeps the JAX package's NHWC layout.  A
 flax ``Conv(k, (3, 3))`` with 'SAME' padding at stride 1 is ``padding=1``
-here.  Fresh parameters follow flax's defaults (:func:`flax_default_init_`):
-LeCun-normal kernels, zero biases, unit GroupNorm scales.
+here.
+
+Dtype policy of the DDPM blocks, as flax's ``dtype`` / ``param_dtype``:
+parameters stay fp32; :class:`Conv2d` and :class:`Linear` cast their input,
+weight and bias to the compute ``dtype`` (bf16 under ``model.use_bf16``)
+and return it; :class:`GroupNorm` computes in fp32 and casts back.  Written
+out rather than left to ``torch.autocast``, which would keep GroupNorm's
+output and the residual adds in fp32 and so compute something else.  One
+difference remains: the conv bias is added inside the convolution (one
+rounding), where flax adds it to the rounded output (two).
 """
 
 from __future__ import annotations
@@ -21,6 +35,8 @@ from typing import Callable, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from unet_design_tpu_torch.ops.embeddings import ddpm_time_embedding
 
 ACTIVATIONS: dict = {
     "relu": F.relu,
@@ -47,8 +63,14 @@ class GroupNorm(nn.GroupNorm):
         super().__init__(num_groups, num_channels, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x.float(), self.num_groups, self.weight,
-                            self.bias, self.eps).to(x.dtype)
+        h = x.float()
+        if h.device.type == "cpu" and not h.requires_grad:
+            # PyTorch's CPU group_norm backward crashes (segfault) on a
+            # channels_last input that needs no gradient, as the DDPM
+            # model's first block gets; an NCHW copy avoids it
+            h = h.contiguous()
+        return F.group_norm(h, self.num_groups, self.weight, self.bias,
+                            self.eps).to(x.dtype)
 
 
 def conv3x3(in_channels: int, out_channels: int) -> nn.Conv2d:
@@ -120,6 +142,180 @@ class ConvTransposeUpsample(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.tconv(x)
+
+
+# ----------------------------------------------------------------------------
+# DDPM (diff_cifar) blocks
+# ----------------------------------------------------------------------------
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` with fp32 parameters that computes in ``dtype``; its
+    fresh init is Xavier-uniform times ``gain`` (:func:`ddpm_init_`)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, gain: float = 1.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size,
+                         stride=stride, padding=padding)
+        self.gain = gain
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.compute_dtype
+        return self._conv_forward(x.to(d), self.weight.to(d),
+                                  self.bias.to(d))
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with fp32 parameters that computes in ``dtype`` (flax
+    ``Dense``); fresh init Xavier-uniform times ``gain``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 gain: float = 1.0, dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features)
+        self.gain = gain
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.compute_dtype
+        return F.linear(x.to(d), self.weight.to(d), self.bias.to(d))
+
+
+@torch.no_grad()
+def ddpm_init_(module: nn.Module,
+               generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Re-initialise ``module`` as the JAX package initialises the DDPM
+    blocks: every :class:`Conv2d` / :class:`Linear` weight Xavier-uniform
+    (``limit = gain * sqrt(6 / (fan_in + fan_out))``, flax's
+    ``xavier_uniform_scaled(gain)``), biases zero, GroupNorm scales one."""
+    for m in module.modules():
+        if isinstance(m, (Conv2d, Linear)):
+            w = m.weight
+            area = w[0, 0].numel()
+            limit = m.gain * math.sqrt(6.0 / ((w.shape[0] + w.shape[1])
+                                              * area))
+            nn.init.uniform_(w, -limit, limit, generator=generator)
+            m.bias.zero_()
+        elif isinstance(m, nn.GroupNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+    return module
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
+            ) -> torch.Tensor:
+    """flax ``nn.Dropout`` in training: keep with probability ``1 - rate``
+    and scale by its inverse; the mask comes from ``generator``, so a
+    resumed run draws the same masks."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, x.new_zeros(()))
+
+
+class TimeEmbedding(nn.Module):
+    """Sinusoid table -> Linear -> swish -> Linear
+    (``diff_cifar/model.py:14-43``).  ``(B,) int -> (B, dim)``."""
+
+    def __init__(self, d_model: int, dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.d_model = d_model
+        self.dense1 = Linear(d_model, dim, dtype=dtype)
+        self.dense2 = Linear(dim, dim, dtype=dtype)
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        emb = ddpm_time_embedding(t, self.d_model)
+        return self.dense2(F.silu(self.dense1(emb)))
+
+
+class DDPMAttnBlock(nn.Module):
+    """Single-head self-attention with 1x1-conv projections
+    (``diff_cifar/model.py:84-119``): the explicit products, with the
+    softmax over the keys in fp32 and cast back to the compute dtype."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.norm = GroupNorm(32, channels)
+        self.q = Conv2d(channels, channels, 1, dtype=dtype)
+        self.k = Conv2d(channels, channels, 1, dtype=dtype)
+        self.v = Conv2d(channels, channels, 1, dtype=dtype)
+        self.proj_out = Conv2d(channels, channels, 1, gain=1e-5, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, hh, ww = x.shape
+        h = self.norm(x)
+        q = self.q(h).flatten(2).transpose(1, 2)        # (b, hw, c)
+        k = self.k(h).flatten(2)                        # (b, c, hw)
+        v = self.v(h).flatten(2).transpose(1, 2)        # (b, hw, c)
+        w = torch.bmm(q, k) * (c ** -0.5)
+        w = torch.softmax(w.float(), dim=-1).to(self.compute_dtype)
+        h = torch.bmm(w, v).transpose(1, 2).reshape(b, c, hh, ww)
+        return x + self.proj_out(h)
+
+
+class DDPMResBlock(nn.Module):
+    """GN-swish-conv / +temb / GN-swish-dropout-conv / +shortcut [/ attn]
+    (``diff_cifar/model.py:122-169``).  The shortcut is a 1x1 conv when the
+    width changes."""
+
+    def __init__(self, in_channels: int, out_channels: int, temb_dim: int,
+                 dropout: float = 0.0, attn: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dropout = dropout
+        self.norm1 = GroupNorm(32, in_channels)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1,
+                            dtype=dtype)
+        self.temb_proj = Linear(temb_dim, out_channels, dtype=dtype)
+        self.norm2 = GroupNorm(32, out_channels)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1,
+                            gain=1e-5, dtype=dtype)
+        self.shortcut = (Conv2d(in_channels, out_channels, 1, dtype=dtype)
+                         if in_channels != out_channels else None)
+        self.attn = DDPMAttnBlock(out_channels, dtype) if attn else None
+
+    def forward(self, x: torch.Tensor, temb: torch.Tensor,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = self.conv1(F.silu(self.norm1(x)))
+        h = h + self.temb_proj(F.silu(temb))[:, :, None, None]
+        h = F.silu(self.norm2(h))
+        if train:
+            h = dropout(h, self.dropout, generator)
+        h = self.conv2(h)
+        h = h + (self.shortcut(x) if self.shortcut is not None else x)
+        return self.attn(h) if self.attn is not None else h
+
+
+class Downsample(nn.Module):
+    """Stride-2 3x3 conv with explicit (1, 1) padding, or 2x2 average
+    pooling (``diff_cifar/model.py:46-63``).  The JAX block pads (1, 1)
+    explicitly because flax's 'SAME' would pad (0, 1)."""
+
+    def __init__(self, channels: int, method: str = "conv",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if method not in ("conv", "avg_pool"):
+            raise NotImplementedError(method)
+        self.conv = (Conv2d(channels, channels, 3, stride=2, padding=1,
+                            dtype=dtype) if method == "conv" else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x) if self.conv is not None else F.avg_pool2d(x, 2)
+
+
+class Upsample(nn.Module):
+    """Nearest x2 upsample + 3x3 conv (``diff_cifar/model.py:66-81``)."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = Conv2d(channels, channels, 3, padding=1, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
 
 
 # flax's lecun_normal draws a normal truncated at +-2 and rescales it by this

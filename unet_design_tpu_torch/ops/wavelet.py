@@ -7,7 +7,8 @@ the bottom/right first, and the zeros take part in the mean: the reference's
 'zero' boundary mode).  These are plain tensor ops; the one kernel of this
 module's family, the multi-level pyramid for the multi-resolution-loss
 targets, lives in :mod:`unet_design_tpu_torch.ops.haar` and plugs in through
-the ``pyramid_fn`` hook of :func:`multires_targets_traj`.
+the ``pyramid_fn`` hook of :func:`multires_targets` (DDPM noise targets)
+and :func:`multires_targets_traj` (PDE trajectory targets).
 
 All functions take NHWC ``(B, H, W, C)`` tensors, the JAX package's layout.
 """
@@ -78,16 +79,24 @@ def dwt_pyramid(x: torch.Tensor, n_levels: int) -> List[torch.Tensor]:
     return out
 
 
-def multires_targets(x: torch.Tensor, n_levels: int, n_downsample: int = 0
+PyramidFn = Callable[[torch.Tensor, int], List[torch.Tensor]]
+
+
+def multires_targets(x: torch.Tensor, n_levels: int, n_downsample: int = 0,
+                     pyramid_fn: Optional[PyramidFn] = None
                      ) -> List[torch.Tensor]:
     """Per-level multi-resolution-loss targets in decoder order (coarsest
     first): ``x`` downsampled by ``k - n_downsample`` octaves for
-    ``k = n_levels-1 .. 0``, negative counts dropped."""
+    ``k = n_levels-1 .. 0``, negative counts dropped.
+
+    ``pyramid_fn`` takes the pyramid (default :func:`dwt_pyramid`; the DDPM
+    loss passes ``ops.haar.haar_pyramid``, whose CUDA kernel needs a
+    contiguous input)."""
     ks = [k - n_downsample for k in reversed(range(n_levels))]
     ks = [k for k in ks if k >= 0]
     if not ks:
         return []
-    pyr = dwt_pyramid(x, max(ks) + 1)
+    pyr = (pyramid_fn or dwt_pyramid)(x, max(ks) + 1)
     return [pyr[k] for k in ks]
 
 
@@ -100,9 +109,6 @@ def haar_downsample_traj(x: torch.Tensor, octaves: int) -> torch.Tensor:
     b, t = x.shape[:2]
     y = haar_downsample(x.reshape(b * t, *x.shape[2:]), octaves)
     return y.reshape(b, t, *y.shape[1:])
-
-
-PyramidFn = Callable[[torch.Tensor, int], List[torch.Tensor]]
 
 
 def multires_targets_traj(y: torch.Tensor, n_levels: int, n_downsample: int,

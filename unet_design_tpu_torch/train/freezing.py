@@ -1,11 +1,12 @@
 """Staged-training freezing as per-stage sets of trainable parameter names.
 
 Port of ``unet_design_tpu/train/freezing.py`` (``unetbase_g_labels``,
-``all_train_labels``).  The JAX package labels every parameter 'train' or
-'frozen' and sends the frozen ones to ``optax.set_to_zero``; the port keeps
-the same labels, keyed on the same top-level module names, and the trainer
-leaves frozen parameters out of the optimizer (so AdamW's weight decay does
-not touch them either, as ``set_to_zero`` does not).
+``multires_unet_labels``, ``all_train_labels``).  The JAX package labels
+every parameter 'train' or 'frozen' and sends the frozen ones to
+``optax.set_to_zero``; the port keeps the same labels, keyed on the same
+top-level module names, and the trainers leave frozen parameters out of the
+optimizer (so AdamW's weight decay does not touch them either, as
+``set_to_zero`` does not) and, in the DDPM trainer, out of the EMA.
 """
 
 from __future__ import annotations
@@ -58,6 +59,33 @@ def unetbase_g_labels(names: Iterable[str], n_levels: int,
         if m:
             return FROZEN if int(m.group(1)) < n - 1 else TRAIN
         return TRAIN
+
+    return label_names(names, lab)
+
+
+def multires_unet_labels(names: Iterable[str], n_levels: int,
+                         n_levels_used: int) -> Dict[str, str]:
+    """diff_cifar freeze rules (``main.py:311-371``) for the stage with
+    ``n_levels_used`` active levels.
+
+    Frozen: everything of the coarsest ``n_levels_used - 1`` levels
+    (``l >= n_levels - n_levels_used + 1``): decoder and encoder blocks,
+    tails, time embeddings; and the middle blocks.  The UpSample of level
+    ``n_levels - n_levels_used + 1`` stays trainable: it feeds the new
+    finest level and was never used before (``main.py:326``).
+    """
+    n = n_levels_used
+    if n <= 1:
+        return all_train_labels(names)
+    first_frozen = n_levels - n + 1
+
+    def lab(name: str) -> str:
+        m = re.match(r"(time_emb|down|up|tail)_(\d+)", name)
+        if m:
+            if int(m.group(2)) < first_frozen:
+                return TRAIN
+            return TRAIN if name == f"up_{first_frozen}_upsample" else FROZEN
+        return FROZEN if name.startswith("middle") else TRAIN
 
     return label_names(names, lab)
 

@@ -1,11 +1,13 @@
 """Learning-rate schedules.
 
-Port of ``unet_design_tpu/train/schedules.py::linear_warmup_cosine_annealing``
-(pdearena's ``LinearWarmupCosineAnnealingLR``, ``lr_scheduler.py:11-93``, in
-closed form).  The reference steps its scheduler once per epoch; the
-trainer evaluates this schedule once per optimizer step at the step count
-before the update (optax's convention), with ``steps_per_epoch`` converting
-that count to the reference's epoch clock.
+Port of ``unet_design_tpu/train/schedules.py``: ``warmup_lr`` (the
+diff_cifar LambdaLR warmup, ``diff_cifar/main.py:90-91``) and
+``linear_warmup_cosine_annealing`` (pdearena's
+``LinearWarmupCosineAnnealingLR``, ``lr_scheduler.py:11-93``, in closed
+form).  The trainers evaluate a schedule once per optimizer step at the
+step count before the update (optax's convention); pdearena steps its
+scheduler once per epoch, so ``steps_per_epoch`` converts that count to
+the reference's epoch clock.
 """
 
 from __future__ import annotations
@@ -14,6 +16,11 @@ import math
 from typing import Callable
 
 Schedule = Callable[[int], float]
+
+
+def warmup_lr(base_lr: float, warmup: int) -> Schedule:
+    """``base_lr * min(step, warmup) / warmup``: 0 at a stage's first step."""
+    return lambda step: base_lr * min(step, warmup) / warmup
 
 
 def linear_warmup_cosine_annealing(base_lr: float, warmup_epochs: int,

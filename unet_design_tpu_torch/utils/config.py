@@ -1,15 +1,19 @@
 """Nested dataclass configs from YAML files and dotted CLI overrides.
 
 Port of ``unet_design_tpu/utils/config.py`` (``from_dict``, ``from_yaml``,
+``save_yaml``, ``resolve_run_dir``, ``restore_run_config``,
 ``apply_overrides``, ``parse_cli``): the same files and the same
-``section.key=value`` overrides parse the same way.  ``yaml`` is imported
-only where a file is read.
+``section.key=value`` overrides parse the same way.  A run's saved
+``config.yaml`` is written as JSON, which is YAML too, so neither writing
+nor reading it back needs the ``yaml`` package; ``yaml`` is imported only
+to read a file that is not JSON.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from typing import Any, Dict, List, Optional, Sequence, Type, TypeVar
 
 T = TypeVar("T")
@@ -46,9 +50,56 @@ def to_dict(cfg: Any) -> Dict[str, Any]:
 
 
 def from_yaml(cls: Type[T], path: str) -> T:
-    import yaml
     with open(path) as f:
-        return from_dict(cls, yaml.safe_load(f) or {})
+        text = f.read()
+    try:
+        data = json.loads(text)
+    except ValueError:
+        import yaml
+        data = yaml.safe_load(text)
+    return from_dict(cls, data or {})
+
+
+def save_yaml(cfg: Any, path: str) -> None:
+    """Save a config beside a run's artifacts (the reference's
+    ``torch.save(H, 'H.dict')``), so the run can be restored by id."""
+    with open(path, "w") as f:
+        json.dump(to_dict(cfg), f, indent=1)
+
+
+def resolve_run_dir(run_id: str) -> str:
+    """A run id is a run directory, or a name under ``runs/``."""
+    if not run_id:
+        raise ValueError("empty run id")
+    if os.path.isdir(run_id):
+        return run_id
+    cand = os.path.join("runs", run_id)
+    if os.path.isdir(cand):
+        return cand
+    raise FileNotFoundError(f"run id {run_id!r}: no such run directory")
+
+
+def restore_run_config(cfg: T) -> T:
+    """``train_id`` / ``test_id`` restore (``diff_cifar/main.py:115-136``):
+    the stored run's ``config.yaml`` replaces the given config wholesale,
+    except the restore fields themselves and the fields that belong to the
+    new run (its logdir, stop point and device; ``resume`` off)."""
+    t = cfg.train
+    run_id = getattr(t, "train_id", "") or getattr(t, "test_id", "")
+    if not run_id:
+        return cfg
+    restored = from_yaml(type(cfg), os.path.join(resolve_run_dir(run_id),
+                                                 "config.yaml"))
+    rt = restored.train
+    rt.train_id, rt.test_id = t.train_id, t.test_id
+    rt.restore_iter = t.restore_iter
+    rt.resume = False
+    rt.logdir = t.logdir
+    if hasattr(t, "stop_after_steps"):
+        rt.stop_after_steps = t.stop_after_steps
+    if hasattr(cfg, "device"):
+        restored.device = cfg.device
+    return restored
 
 
 def _parse_value(s: str) -> Any:
