@@ -9,9 +9,10 @@ prints no result line); each prints its seconds:
    print the card's name and power limit;
 2. hold the Haar-pyramid kernel against its plain PyTorch version on the
    card, bit for bit, at the PDE path's shapes, the DDPM path's CIFAR
-   shapes, in bf16, off a 16-byte boundary and where the plan splits the
-   width, and the multi-res targets of both paths through it; time it at
-   (8, 128, 128, 3) L4 and the three CIFAR shapes beside its bound, the
+   shapes, the VP path's one-channel MNIST shapes, in bf16, off a 16-byte
+   boundary and where the plan splits the width, and the multi-res targets
+   of the three paths through it; time it at (8, 128, 128, 3) L4, the
+   three CIFAR shapes and the three MNIST shapes beside its bound, the
    plain version, the ``F.avg_pool2d`` chain (kernel and chain in turns)
    and an empty kernel on the same grid (the launch floor);
 3. train ``Unetbase-64_G`` at full width (hidden 64, 128x128, batch 8) with
@@ -30,7 +31,16 @@ prints no result line); each prints its seconds:
    (T = 1000), DDIM (50 steps) and DPM-Solver (20 steps), timed; and the
    trained model's fp32 forward on the card against the CPU;
 5. time the ``Unetbase-64`` forward at the ``bench.py`` protocol (batch 8,
-   (8, 4, 128, 128, 3) fp32) with CUDA events.
+   (8, 4, 128, 128, 3) fp32) with CUDA events;
+6. train the MNIST-Triangular VP diffusion (``configs/diff_mnist_triangular
+   .yaml``'s ``WaveletUNetOpenAI``: ch 32 x [2, 2, 2, 2], fp32, 64x64,
+   batch 128, DWT encoder, multi-res loss, freezing, N = 30) on 512
+   synthetic 28x28 digits put through the triangular preprocessing, four
+   stages of 8 steps, stopping and resuming at every stage boundary; check
+   finite losses, 0, 8, 8, 8 kernel launches, frozen parameters unchanged
+   and trainable ones moved; sample 25 images at 8, 16, 32 and 64 px and
+   super-resolve 32 -> 64 px from the stage-3 checkpoint, timed; and the
+   trained model's forward on the card against the CPU.
 
 Kernel launches are counted on each training path alone (the count is set
 to 0 just before it and read just after) and printed per path; the
@@ -136,7 +146,10 @@ def phase_kernel(device) -> dict:
              ((2, 8, 1000, 5), 4, torch.bfloat16, 1),
              ((1, 32, 400, 3), 4, torch.float32, 0),
              ((1, 4, 8, 3000), 2, torch.float32, 0),
-             ((1, 64, 64, 2), 6, torch.float32, 0)]
+             ((1, 64, 64, 2), 6, torch.float32, 0),
+             ((128, 64, 64, 1), 4, torch.float32, 0),
+             ((128, 32, 32, 1), 3, torch.float32, 0),
+             ((128, 16, 16, 1), 2, torch.float32, 0)]
     max_err = 0.0
     for shape, n_levels, dtype, misalign in cases:
         x = rand(shape, dtype, misalign)
@@ -175,9 +188,11 @@ def phase_kernel(device) -> dict:
         raise AssertionError(f"multires_targets_traj disagrees: {errs}")
     max_err = max(max_err, max(errs))
 
-    # the DDPM loss's call: noise targets at the staged CIFAR shapes
+    # the DDPM and VP losses' call: noise targets at the staged CIFAR and
+    # MNIST-Triangular shapes
     for shape, nd in (((128, 8, 8, 3), 2), ((128, 16, 16, 3), 1),
-                      ((128, 32, 32, 3), 0)):
+                      ((128, 32, 32, 3), 0), ((128, 16, 16, 1), 2),
+                      ((128, 32, 32, 1), 1), ((128, 64, 64, 1), 0)):
         noise = rand(shape)
         out = wavelet.multires_targets(noise, 4, nd,
                                        pyramid_fn=haar.haar_pyramid)
@@ -189,10 +204,12 @@ def phase_kernel(device) -> dict:
             raise AssertionError(f"multires_targets disagrees: {errs}")
         max_err = max(max_err, max(errs))
 
-    # timing: the PDE path's largest call, then the DDPM path's three
+    # timing: the PDE path's largest call, then the DDPM path's three and
+    # the VP path's three
     main = time_pyramid(haar, rand((8, 128, 128, 3)), 4)
     for shape, n_levels in (((128, 32, 32, 3), 4), ((128, 16, 16, 3), 3),
-                            ((128, 8, 8, 3), 2)):
+                            ((128, 8, 8, 3), 2), ((128, 64, 64, 1), 4),
+                            ((128, 32, 32, 1), 3), ((128, 16, 16, 1), 2)):
         time_pyramid(haar, rand(shape), n_levels)
     return dict(name="haar_pyramid", route="cuda",
                 source="unet_design_tpu_torch/csrc/haar_pyramid.cu",
@@ -510,6 +527,156 @@ def phase_ddpm() -> int:
     return launches
 
 
+MNIST_STEPS = 8         # per stage, 4 stages
+MNIST_SAMPLES = 25
+
+
+def _mnist_config(logdir: str, root: str, stage: int):
+    """``configs/diff_mnist_triangular.yaml``'s model and recipe, written
+    out, on the MNIST files under ``root``, ``MNIST_STEPS`` steps a stage;
+    the run stops after ``stage`` and a later call resumes it.  No figures
+    (the card's machine has no matplotlib); the yaml's ``do_superres``
+    stays on and is skipped with a warning, as in the JAX trainer (four
+    stages leave no fifth level)."""
+    from unet_design_tpu_torch.tasks import diff_mnist
+    cfg = diff_mnist.Config()
+    cfg.device = "cuda"
+    m = cfg.model
+    m.name, m.num_channels, m.num_res_blocks = "unet_wavelet", 32, 2
+    m.channel_mult, m.dwt_encoder, m.multi_res_loss = [2, 2, 2, 2], True, True
+    d = cfg.diffusion
+    d.beta_min, d.beta_max, d.N = 0.1, 20.0, 30
+    cfg.data.dataset, cfg.data.root = "mnist_triangular", root
+    cfg.data.resolution, cfg.data.batch_size = 64, 128
+    t = cfg.train
+    t.num_iterations_list = [MNIST_STEPS] * 4
+    t.lr, t.freeze_lower_res, t.do_superres = 1e-3, True, True
+    t.metrics_every_iters = 1
+    t.stop_after_steps = MNIST_STEPS * (stage + 1)
+    t.resume = stage > 0
+    t.logdir = logdir
+    return cfg
+
+
+def _synthetic_digits(n: int, seed: int = 0) -> np.ndarray:
+    """``n`` digit-like 28x28 uint8 images: thick random strokes (a 5x5
+    grid of coin flips blown up 4x) in a 20x20 box on black."""
+    rng = np.random.default_rng(seed)
+    strokes = (rng.random((n, 5, 5)) < 0.4).repeat(4, 1).repeat(4, 2)
+    imgs = np.zeros((n, 28, 28), np.uint8)
+    imgs[:, 4:24, 4:24] = strokes * rng.integers(160, 256, (n, 1, 1))
+    return imgs
+
+
+def phase_mnist() -> int:
+    from unet_design_tpu_torch.ops import haar
+    from unet_design_tpu_torch.tasks import diff_mnist
+    from unet_design_tpu_torch.train import freezing
+
+    base = os.path.join(HERE, "runs", "chip_smoke_mnist")
+    shutil.rmtree(base, ignore_errors=True)
+    root, logdir = os.path.join(base, "data"), os.path.join(base, "run")
+    os.makedirs(root)
+    np.savez(os.path.join(root, "mnist_train.npz"),
+             images=_synthetic_digits(512), labels=np.zeros(512, np.int64))
+    snapshots, per_stage = [], []
+    haar.launches = 0   # the VP path starts here
+    for stage in range(4):
+        before = haar.launches
+        state = diff_mnist.train(_mnist_config(logdir, root, stage))
+        per_stage.append(haar.launches - before)
+        snapshots.append({k: v.detach().clone() for k, v in
+                          state.model.state_dict().items()})
+    launches = haar.launches  # the VP path ends here
+
+    records = [json.loads(l) for l in open(os.path.join(logdir,
+                                                        "metrics.jsonl"))]
+    losses = [r["train/loss"] for r in records if "train/loss" in r]
+    levels = [[v for k, v in r.items() if k.startswith("train/res_")]
+              for r in records if "train/loss" in r]
+    sps = [r["train/steps_per_sec"] for r in records
+           if "train/steps_per_sec" in r]
+    log(f"[mnist] per-step train/loss {[round(l, 4) for l in losses]}")
+    log(f"[mnist] per-stage steps/s {sps} (batch 128, fp32; stage 0 at 8x8 "
+        f"... stage 3 at 64x64; each stage's first step included) on "
+        f"{card_line()}")
+    log(f"[mnist] haar_pyramid launches per stage {per_stage}")
+    if len(losses) != 4 * MNIST_STEPS or not all(
+            np.isfinite(v) for l in levels for v in l + losses):
+        raise AssertionError(f"losses: {losses}")
+    if [len(l) for l in levels] != sorted(
+            [s + 1 for s in range(4)] * MNIST_STEPS):
+        raise AssertionError(f"per-level losses: {levels}")
+    if per_stage != [0] + [MNIST_STEPS] * 3:
+        raise AssertionError(f"expected 0, {MNIST_STEPS}, {MNIST_STEPS}, "
+                             f"{MNIST_STEPS} launches, got {per_stage}")
+
+    names = list(snapshots[0])
+    for stage in range(1, 4):
+        labels = freezing.openai_wavelet_labels(names, 4, stage + 1)
+        p0, p1 = snapshots[stage - 1], snapshots[stage]
+        frozen = [n for n, l in labels.items() if l == freezing.FROZEN]
+        moved = [n for n in frozen if not torch.equal(p0[n], p1[n])]
+        trained = [n for n, l in labels.items() if l == freezing.TRAIN
+                   and not torch.equal(p0[n], p1[n])]
+        up = f"dec_{4 - stage}_up.conv1.weight"
+        log(f"[mnist] stage {stage}: {len(frozen)} frozen tensors unchanged,"
+            f" {len(trained)} trainable tensors updated ({up} among them: "
+            f"{up in trained})")
+        if moved or not frozen or up not in trained:
+            raise AssertionError(f"stage {stage}: frozen tensors moved "
+                                 f"{moved[:5]}, trained {len(trained)}")
+
+    # sampling at every trained resolution, and super-resolution 32 -> 64
+    # from the stage-3 checkpoint (three levels trained, one more decoded)
+    cfg = _mnist_config(logdir, root, 3)
+    model = state.model
+    vp = diff_mnist.build_vp(cfg, torch.device("cuda"))
+    gen = torch.Generator("cuda").manual_seed(0)
+    for k, res in enumerate((8, 16, 32, 64), start=1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = diff_mnist.sample(cfg, model, vp, gen, k, res, 1, MNIST_SAMPLES)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        log(f"[mnist] reverse-SDE sampler, 30 steps, {MNIST_SAMPLES} "
+            f"samples at {res}x{res} (n_levels_used {k}), fp32: "
+            f"{secs:.3f} s on {card_line()}")
+        if x.shape != (MNIST_SAMPLES, res, res, 1) or \
+                not torch.isfinite(x).all():
+            raise AssertionError(f"samples at {res}: {tuple(x.shape)}")
+    model.load_state_dict(snapshots[2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = diff_mnist.superres_sample(cfg, model, vp, gen, 32, 64, 3, 1)
+    torch.cuda.synchronize()
+    log(f"[mnist] super-resolution 32 -> 64 (n_levels_used 3 + 1), 30 "
+        f"steps, {x.shape[0]} samples, fp32: {time.perf_counter() - t0:.3f}"
+        f" s on {card_line()}")
+    if x.shape != (10, 64, 64, 1) or not torch.isfinite(x).all():
+        raise AssertionError(f"super-resolved: {tuple(x.shape)}")
+
+    # the trained model on the card against the same model on the CPU
+    model.load_state_dict(snapshots[-1])
+    cpu = diff_mnist.build_model(cfg, 1)
+    cpu.load_state_dict({k: v.cpu() for k, v in snapshots[-1].items()})
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 64, 64, 1)).astype(np.float32))
+    t = torch.tensor([3.0, 17.5])
+    with torch.no_grad():
+        out = model(x.cuda(), t.cuda())
+        ref = cpu(x, t)
+    for a, b in zip(out, ref, strict=True):
+        err = float((a.cpu() - b).abs().max())
+        scale = float(b.abs().max())
+        log(f"[mnist] fp32 forward {tuple(a.shape)} card vs CPU: max abs "
+            f"err {err:.3g} (scale {scale:.3g}, tol 1e-4 relative)")
+        if not torch.isfinite(a).all() or err > 1e-4 * max(scale, 1e-6):
+            raise AssertionError(f"card forward disagrees with CPU: {err}")
+    shutil.rmtree(base, ignore_errors=True)
+    return launches
+
+
 def phase_forward(device) -> None:
     from unet_design_tpu_torch.models import registry
     from unet_design_tpu_torch.ops import blocks
@@ -548,10 +715,12 @@ def main() -> int:
     record = timed("kernel", phase_kernel, device)
     pde_launches = timed("slice", phase_slice)
     ddpm_launches = timed("ddpm", phase_ddpm)
-    log(f"[launches] haar_pyramid per path: PDE staged training "
-        f"{pde_launches}, DDPM staged training {ddpm_launches}")
-    record["launches"] = pde_launches + ddpm_launches
     timed("forward", phase_forward, device)
+    mnist_launches = timed("mnist", phase_mnist)
+    log(f"[launches] haar_pyramid per path: PDE staged training "
+        f"{pde_launches}, DDPM staged training {ddpm_launches}, VP staged "
+        f"training {mnist_launches}")
+    record["launches"] = pde_launches + ddpm_launches + mnist_launches
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [record]}))
     print(card_line())

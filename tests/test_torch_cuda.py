@@ -1,5 +1,5 @@
-"""The port's CUDA kernel against its plain version, and the DDPM slice's
-model and trainer, on the card.
+"""The port's CUDA kernel against its plain version, and the diffusion
+slices' models and trainers, on the card.
 
 Marked ``cuda``: each test skips where no CUDA device is present (the CPU
 tier-1 run).  On a machine with an H100 and ``nvcc``, run
@@ -49,6 +49,9 @@ def _x(shape, dtype, device, seed=0, misalign=0):
     ((128, 32, 32, 3), 4, torch.float32),  # CIFAR
     ((128, 32, 32, 3), 4, torch.bfloat16),
     ((1, 64, 64, 2), 6, torch.float32),    # levels past the warp shuffles
+    ((128, 64, 64, 1), 4, torch.float32),  # diff_mnist, one channel
+    ((128, 32, 32, 1), 3, torch.float32),
+    ((128, 16, 16, 1), 2, torch.float32),
 ])
 def test_kernel_matches_plain(cuda, shape, n_levels, dtype):
     _check_kernel(_x(shape, dtype, cuda), n_levels)
@@ -129,13 +132,16 @@ def test_plan_is_made_once_and_launch_floor_runs(cuda):
 
 
 @pytest.mark.parametrize("shape,n_downsample", [
-    ((128, 8, 8, 3), 2),      # stage 1 of 4: L2
+    ((128, 8, 8, 3), 2),      # CIFAR, stage 1 of 4: L2
     ((128, 16, 16, 3), 1),    # stage 2: L3
-    ((128, 32, 32, 3), 0)])   # stage 3: L4
+    ((128, 32, 32, 3), 0),    # stage 3: L4
+    ((128, 16, 16, 1), 2),    # MNIST-Triangular, stage 1 of 4: L2
+    ((128, 32, 32, 1), 1),    # stage 2: L3
+    ((128, 64, 64, 1), 0)])   # stage 3: L4
 def test_multires_targets_through_kernel(cuda, shape, n_downsample):
-    """The DDPM loss's noise targets at CIFAR's staged shapes: one launch,
-    the plain ``dwt_pyramid``'s values (it takes a mean where the kernel
-    adds in pairs, hence 1e-6)."""
+    """The diffusion losses' noise targets at the staged shapes of CIFAR
+    and of MNIST-Triangular: one launch, the plain ``dwt_pyramid``'s values
+    (it takes a mean where the kernel adds in pairs, hence 1e-6)."""
     noise = torch.randn(shape, device=cuda,
                         generator=torch.Generator(cuda).manual_seed(0))
     before = haar.launches
@@ -194,3 +200,26 @@ def test_full_width_ddpm_train_step(cuda, tmp_path):
     rec = json.loads(open(tmp_path / "metrics.jsonl").readline())
     assert np.isfinite(rec["train/loss"]) and np.isfinite(
         rec["train/grad_norm"])
+
+
+def test_full_width_diff_mnist_train_step(cuda, tmp_path):
+    """One step of ``configs/diff_mnist_triangular.yaml``'s model (ch 32 x
+    [2, 2, 2, 2], fp32) at full depth, 64x64, batch 128: a finite loss per
+    level, one kernel launch."""
+    from unet_design_tpu_torch.tasks import diff_mnist
+    cfg = diff_mnist.Config()
+    cfg.model.channel_mult = [2, 2, 2, 2]
+    cfg.model.dwt_encoder = True
+    cfg.model.multi_res_loss = True
+    cfg.data.resolution = 64
+    cfg.train.num_iterations_list = [1]
+    cfg.train.metrics_every_iters = 1
+    cfg.train.logdir = str(tmp_path)
+    before = haar.launches
+    state = diff_mnist.train(cfg)
+    assert haar.launches == before + 1 and state.step == 1
+    rec = json.loads(open(tmp_path / "metrics.jsonl").readline())
+    assert [k for k in rec if k.startswith("train/res_")] == [
+        "train/res_8_loss", "train/res_16_loss", "train/res_32_loss",
+        "train/res_64_loss"]
+    assert all(np.isfinite(v) for k, v in rec.items() if k != "step")

@@ -15,6 +15,7 @@ final parameters and EMA at 1e-4.
 import json
 import os
 import pickle
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -42,6 +43,7 @@ from unet_design_tpu_torch.train import freezing as tfreezing
 from unet_design_tpu_torch.train import schedules as tschedules
 from unet_design_tpu_torch.train import trainer as ttrainer
 from unet_design_tpu_torch.utils import config as tconfig
+from unet_design_tpu_torch.utils.logging import MetricsLogger
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -139,6 +141,84 @@ def test_grad_clip_and_global_norm(max_norm):
     for a, b in zip(ref, tg):
         np.testing.assert_allclose(np.asarray(a), b.numpy(), rtol=1e-6,
                                    atol=1e-7)
+
+
+def test_loss_metrics_names_each_resolution():
+    m = ttrainer.loss_metrics(torch.tensor(3.0), [torch.tensor(1.0),
+                                                  torch.tensor(2.0)],
+                              torch.tensor(0.5), 16)
+    assert m == {"train/loss": 3.0, "train/grad_norm": 0.5,
+                 "train/res_8_loss": 1.0, "train/res_16_loss": 2.0}
+
+
+def _toy_model():
+    torch.manual_seed(0)
+    return torch.nn.ModuleDict({"a": torch.nn.Linear(2, 2),
+                                "b": torch.nn.Linear(2, 2)})
+
+
+def _toy_stages(tmp_path, stop_after_steps=0, resume=False):
+    """The shared staged loop on a toy model: layer ``a`` is used from
+    stage 0, ``b`` only from stage 1; an extra-state counter stands in for
+    the EMA.  Returns the final state, the ``lr_at`` arguments and ``b``
+    as stage 0 left it."""
+    model = _toy_model()
+    data = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (8, 4, 4, 2)).astype(np.float32))
+    count = {"n": torch.zeros(())}
+    tc = tdc.TrainConfig(lr=0.1, grad_clip=0.5, metrics_every_iters=1,
+                         stop_after_steps=stop_after_steps, resume=resume,
+                         logdir=str(tmp_path))
+    lrs, b_after_stage_0 = [], {}
+
+    def loss_fn(stage, x0, step):
+        out = model["a"](x0)
+        if stage.spec.n_levels_used == 2:
+            out = out + model["b"](x0)
+        loss = (out ** 2).mean()
+        return loss, [loss]
+
+    def on_step(stage, x0, step):
+        assert x0.shape[1] == stage.res
+        if step == 2:
+            b_after_stage_0.update({k: v.clone() for k, v in
+                                    model["b"].state_dict().items()})
+
+    metrics = MetricsLogger(str(tmp_path))
+    step, opt, stopped = ttrainer.run_stages(
+        model, ttrainer.StageSpec.from_schedule([3, 3], 2), tc,
+        highest_res=4, n_items=8, batch_size=2, save_every=0,
+        device=torch.device("cpu"), metrics=metrics,
+        labels_fn=lambda spec: tfreezing.all_train_labels(
+            dict(model.named_parameters())),
+        batch_fn=lambda idx, step: data[torch.as_tensor(idx)],
+        loss_fn=loss_fn, on_step=on_step,
+        lr_at=lambda k: lrs.append(k) or 0.1,
+        on_update=lambda stage: count["n"].add_(1),
+        stop_files=(), extra_state={"count": count})
+    metrics.close()
+    return (step, stopped, model.state_dict(), count["n"].item(), lrs,
+            b_after_stage_0)
+
+
+@pytest.mark.parametrize("stop_at", [2, 3, 4])
+def test_run_stages_resume_and_unreached_parameters(tmp_path, stop_at):
+    """``trainer.run_stages``: a parameter the stage never reaches gets
+    zero gradients, which Adam leaves in place; ``lr_at`` sees the steps
+    done in the stage; a run stopped at ``stop_at`` and resumed ends bit
+    for bit where the uninterrupted run does, its extra state restored."""
+    step, stopped, want, n, lrs, b0 = _toy_stages(tmp_path / "full")
+    assert (step, stopped, n, lrs) == (6, False, 6.0, [0, 1, 2, 0, 1, 2])
+    b_init = _toy_model()["b"].state_dict()
+    assert all(torch.equal(b0[k], b_init[k]) for k in b_init)
+    assert not torch.equal(want["b.weight"], b_init["weight"])
+
+    run = tmp_path / "cut"
+    assert _toy_stages(run, stop_after_steps=stop_at)[:2] == (stop_at, True)
+    step, stopped, got, n, lrs, _ = _toy_stages(run, resume=True)
+    assert (step, stopped, n) == (6, False, 6.0)
+    assert lrs == [0, 1, 2, 0, 1, 2][stop_at:]
+    assert all(torch.equal(got[k], want[k]) for k in want)
 
 
 # -------------------------------------------------------------------- data
@@ -272,7 +352,6 @@ def test_run_config_save_and_restore(tmp_path):
 
 @pytest.mark.parametrize("override", ["train.eval_step=10",
                                       "train.test_id=some_run",
-                                      "train.sample_step=10",
                                       "parallel.data=2",
                                       "data.device_cache=false"])
 def test_unported_options_raise(tmp_path, override):
@@ -446,6 +525,36 @@ def test_resume_equals_uninterrupted(tmp_path, stop_at):
     cfg3.train.train_id = str(tmp_path / "int")
     cfg3.train.restore_iter = stop_at
     _assert_same_state(full, tdc.train(cfg3))
+
+
+def test_sample_step_logs_ema_grids(tmp_path, monkeypatch):
+    """``train.sample_step``: a grid of samples from the EMA parameters at
+    every active resolution (``unet_design_tpu/tasks/diff_cifar.py:
+    383-402``); the EMA sampler is the model with the EMA loaded; without
+    matplotlib the run fails in ``check_config``."""
+    cfg = _tiny_cfg(tmp_path, "grids")
+    cfg.diffusion.T = 10
+    cfg.train.sample_step = 3
+    cfg.train.sample_size = 4
+    cfg.train.ema_decay = 0.5
+    state = tdc.train(cfg)
+    assert sorted(os.listdir(tmp_path / "grids" / "figures")) == [
+        "samples_res_16_0.png", "samples_res_16_3.png",
+        "samples_res_32_3.png"]
+    sch = tdc.diffusion.DDPMSchedule.create(cfg.diffusion.beta_1,
+                                            cfg.diffusion.beta_T, 10)
+    x_T = torch.from_numpy(_x((2, 32, 32, 3), 4))
+    got = tdc.make_sampler(cfg, state.model, sch, 2, state.ema)(
+        x_T, torch.Generator().manual_seed(1))
+    assert not all(torch.equal(state.ema[n], p)
+                   for n, p in state.model.named_parameters())
+    state.model.load_state_dict(state.ema)
+    want = tdc.make_sampler(cfg, state.model, sch, 2)(
+        x_T, torch.Generator().manual_seed(1))
+    assert torch.equal(got, want)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match="train.sample_step"):
+        tdc.check_config(cfg)
 
 
 def test_stop_file_and_cli(tmp_path, monkeypatch):

@@ -23,6 +23,9 @@ SHAPES = [  # (shape, n_levels, dtype)
     ((1, 32, 400, 3), 4, torch.float32),     # just too wide: split, ragged
     ((1, 4, 8, 3000), 2, torch.float32),     # a 2x2 tile is over 36 KB
     ((1, 64, 64, 2), 6, torch.float32),      # deeper than the shuffles
+    ((128, 64, 64, 1), 4, torch.float32),    # diff_mnist, stage 3
+    ((128, 32, 32, 1), 3, torch.float32),    # stage 2
+    ((128, 16, 16, 1), 2, torch.float32),    # stage 1
 ]
 IDS = [f"{s}-L{l}-{str(d)[6:]}" for s, l, d in SHAPES]
 
@@ -145,3 +148,20 @@ def test_default_plans_of_the_main_path():
         p = haar.Plan(shape, torch.float32, n_levels)
         assert p.n_seg == 1 and p.grid == (1, 16, 8)
         assert p.rows * shape[2] * shape[3] * 4 <= 12 * 1024
+
+
+@pytest.mark.parametrize("shape,n_levels", [((128, 64, 64, 1), 4),
+                                            ((128, 32, 32, 1), 3),
+                                            ((128, 16, 16, 1), 2)])
+def test_plans_of_the_mnist_path(shape, n_levels):
+    """One channel: whole rows of 64, 32 or 16 floats, one block per
+    2^(L-1) rows of an image; every row of every level starts on a 16-byte
+    boundary and is a whole number of 16-byte vectors."""
+    b, h, w, c = shape
+    p = haar.Plan(shape, torch.float32, n_levels)
+    assert p.n_seg == 1 and p.seg == w
+    assert p.grid == (1, h >> (n_levels - 1), b)
+    for _, hl, wl, cl in [shape] + p.level_shapes:
+        assert (wl * cl * 4) % 16 == 0
+    for off in p.level_offsets:
+        assert (off * 4) % 16 == 0

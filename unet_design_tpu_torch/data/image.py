@@ -1,18 +1,71 @@
-"""CIFAR-10 images (the diff_cifar subset of
-``unet_design_tpu/data/image.py``): the disk loader, the synthetic
-stand-in with CIFAR's shape, and the per-sample horizontal flip.  The
-loaders give numpy NHWC float32 in [-1, 1]; the trainer moves them to the
-device, where the flip runs.
+"""Image datasets (the diff_cifar and diff_mnist subsets of
+``unet_design_tpu/data/image.py``): the MNIST and CIFAR-10 disk loaders,
+their synthetic stand-ins, and the per-sample horizontal flip.  The
+loaders give numpy NHWC float32 in [-1, 1]; the trainers move them to the
+device, where the flip runs.  CelebA64, whose reader needs ``lmdb``, and
+EMNIST wait for their slice (``ROADMAP.md`` queue A, items 14a and 14b).
 """
 
 from __future__ import annotations
 
+import gzip
 import os
 import pickle
+import struct
 from typing import Tuple
 
 import numpy as np
 import torch
+
+
+def _read_idx(path: str) -> np.ndarray:
+    """An idx file (MNIST's own format), gzipped or not."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        magic = struct.unpack(">I", f.read(4))[0]
+        ndim = magic & 0xFF
+        shape = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+        return np.frombuffer(f.read(), np.uint8).reshape(shape)
+
+
+def load_mnist(root: str, train: bool = True,
+               pad_to_32: bool = True) -> Tuple[np.ndarray, np.ndarray]:
+    """``(images (N, H, W, 1) float32 in [-1, 1], labels int64)`` from
+    ``mnist_{train,t10k}.npz`` (``images``, ``labels``) or else the idx
+    files ``{train,t10k}-{images-idx3,labels-idx1}-ubyte[.gz]``
+    (``unet_design_tpu/data/image.py:42-65``); ``pad_to_32`` pads 28 -> 32
+    with -1."""
+    prefix = "train" if train else "t10k"
+    imgs = labels = None
+    npz = os.path.join(root, f"mnist_{prefix}.npz")
+    if os.path.exists(npz):
+        d = np.load(npz)
+        imgs, labels = d["images"], d["labels"]
+    else:
+        for ext in ("", ".gz"):
+            ip = os.path.join(root, f"{prefix}-images-idx3-ubyte{ext}")
+            lp = os.path.join(root, f"{prefix}-labels-idx1-ubyte{ext}")
+            if os.path.exists(ip) and os.path.exists(lp):
+                imgs, labels = _read_idx(ip), _read_idx(lp)
+                break
+    if imgs is None:
+        raise FileNotFoundError(f"No MNIST files under {root}")
+    x = imgs.astype(np.float32) / 255.0
+    x = ((x - 0.5) / 0.5)[..., None]
+    if pad_to_32:
+        x = np.pad(x, ((0, 0), (2, 2), (2, 2), (0, 0)),
+                   constant_values=-1.0)
+    return x, labels.astype(np.int64)
+
+
+def synthetic_mnist(n: int = 256, size: int = 32,
+                    seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Digit-free stand-in: 4x4 blocks of noise through tanh, in [-1, 1]
+    (``unet_design_tpu/data/image.py:88-95``)."""
+    rng = np.random.default_rng(seed)
+    base = rng.standard_normal((n, size // 4, size // 4, 1)).astype(np.float32)
+    x = np.tanh(base.repeat(4, axis=1).repeat(4, axis=2))
+    return x, rng.integers(0, 10, n).astype(np.int64)
 
 
 def load_cifar10(root: str, train: bool = True

@@ -15,15 +15,18 @@ tests use (``tests/test_reference_parity.py::_t2f_conv`` / ``_t2f_tconv``):
 
 Flax's automatic submodule names map onto the port's attribute names:
 ``Conv_0/1`` -> ``conv1/2``, ``GroupNorm_0/1`` -> ``norm1/2`` (the inner
-``GroupNorm_0`` of the fp32 wrapper folds away), ``ConvBlock_0`` ->
-``block``, ``ConvTranspose_0`` -> ``tconv``; named modules (``core``,
-``image_proj_0``, ``up_1_chconv``, ``final_3``, ``temb_proj``, ...) keep
-their names.  Inside the DDPM blocks the same automatic names mean other
-layers, so there the module they sit in decides (``_SCOPED``):
-``DDPMAttnBlock_0`` -> ``attn`` with ``Conv_0..3`` -> ``q, k, v,
-proj_out``; a ``time_emb_{l}``'s ``Dense_0/1`` -> ``dense1/2``; the one
-``Conv_0`` of a ``down_{l}_downsample`` / ``up_{l}_upsample`` -> ``conv``;
-a ``tail_{l}``'s ``GroupNorm_0`` / ``Conv_0`` -> ``norm`` / ``conv``.
+``GroupNorm_0`` of the fp32 wrapper folds away), ``Dense_0/1`` ->
+``dense1/2``, ``ConvBlock_0`` -> ``block``, ``ConvTranspose_0`` ->
+``tconv``; named modules (``core``, ``image_proj_0``, ``up_1_chconv``,
+``final_3``, ``temb_proj``, ``emb_proj``, ``qkv``, ``out_reduce_2``, ...)
+keep their names.  Where the same automatic names mean other layers, the
+module they sit in decides (``_SCOPED``): ``DDPMAttnBlock_0`` -> ``attn``
+with ``Conv_0..3`` -> ``q, k, v, proj_out``; the one ``Conv_0`` of a
+``down_{l}_downsample`` / ``up_{l}_upsample`` -> ``conv``; a ``tail_{l}``'s
+``GroupNorm_0`` / ``Conv_0`` -> ``norm`` / ``conv``; the one
+``GroupNorm_0`` of an OpenAI attention block (``*attn``) or output head
+(``out_act_{i}``) -> ``norm``; an MLP's (``t_encoder``, ``x_encoder``, ``net``)
+``Dense_k`` -> ``layers.k``.
 Input is the nested dict of arrays under flax's ``"params"``.
 """
 
@@ -37,19 +40,23 @@ import torch
 import torch.nn as nn
 
 _RENAME = {"Conv_0": "conv1", "Conv_1": "conv2", "GroupNorm_0": "norm1",
-           "GroupNorm_1": "norm2", "ConvBlock_0": "block",
+           "GroupNorm_1": "norm2", "Dense_0": "dense1", "Dense_1": "dense2",
+           "ConvBlock_0": "block",
            "ConvTranspose_0": "tconv", "DDPMAttnBlock_0": "attn"}
 _SCOPED = [
     (re.compile(r"DDPMAttnBlock_0"), {"Conv_0": "q", "Conv_1": "k",
                                       "Conv_2": "v", "Conv_3": "proj_out",
                                       "GroupNorm_0": "norm"}),
-    (re.compile(r"time_emb_\d+"), {"Dense_0": "dense1", "Dense_1": "dense2"}),
     (re.compile(r"(down|up)_\d+_(downsample|upsample)"), {"Conv_0": "conv"}),
     (re.compile(r"tail_\d+"), {"GroupNorm_0": "norm", "Conv_0": "conv"}),
+    (re.compile(r"(.+_)?attn|out_act_\d+"), {"GroupNorm_0": "norm"}),
 ]
+_MLP = re.compile(r"t_encoder|x_encoder|net")
 
 
 def _rename(parent: str, seg: str) -> str:
+    if _MLP.fullmatch(parent) and seg.startswith("Dense_"):
+        return "layers." + seg[len("Dense_"):]
     for pattern, names in _SCOPED:
         if pattern.fullmatch(parent):
             return names.get(seg, seg)

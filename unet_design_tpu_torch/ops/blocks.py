@@ -11,6 +11,9 @@ Port of two subsets of ``unet_design_tpu/ops/blocks.py``:
 - diff_cifar DDPM: ``TimeEmbedding``, ``DDPMAttnBlock``, ``DDPMResBlock``,
   ``Downsample``, ``Upsample`` (``diff_cifar/model.py:9-169``), with their
   Xavier-uniform init and its per-layer gain (:func:`ddpm_init_`).
+- diff_mnist OpenAI: ``OpenAIResBlock`` and ``QKVAttentionBlock``
+  (``unet_design_tpu/ops/blocks.py:361-427``), with flax's default init
+  (:func:`flax_default_init_`) and zero-initialised output layers.
 
 Modules take NCHW feature maps (the layout cuDNN is called with); the
 function :func:`nearest_upsample` keeps the JAX package's NHWC layout.  A
@@ -150,15 +153,18 @@ class ConvTransposeUpsample(nn.Module):
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` with fp32 parameters that computes in ``dtype``; its
-    fresh init is Xavier-uniform times ``gain`` (:func:`ddpm_init_`)."""
+    fresh init is Xavier-uniform times ``gain`` (:func:`ddpm_init_`), or
+    LeCun-normal (:func:`flax_default_init_`), or zero where ``zero_init``
+    (flax's ``zeros_init`` kernels)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, gain: float = 1.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, zero_init: bool = False):
         super().__init__(in_channels, out_channels, kernel_size,
                          stride=stride, padding=padding)
         self.gain = gain
         self.compute_dtype = dtype
+        self.zero_init = zero_init
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.compute_dtype
@@ -171,10 +177,12 @@ class Linear(nn.Linear):
     ``Dense``); fresh init Xavier-uniform times ``gain``."""
 
     def __init__(self, in_features: int, out_features: int,
-                 gain: float = 1.0, dtype: torch.dtype = torch.float32):
+                 gain: float = 1.0, dtype: torch.dtype = torch.float32,
+                 zero_init: bool = False):
         super().__init__(in_features, out_features)
         self.gain = gain
         self.compute_dtype = dtype
+        self.zero_init = zero_init
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.compute_dtype
@@ -318,6 +326,91 @@ class Upsample(nn.Module):
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
 
 
+# ----------------------------------------------------------------------------
+# OpenAI-style (diff_mnist) blocks
+# ----------------------------------------------------------------------------
+
+class OpenAIResBlock(nn.Module):
+    """OpenAI DDPM residual block (``unet_design_tpu/ops/blocks.py:361-401``,
+    ``torch_ddpm/ddpm/models/unet/layers.py:250-340``): GN-SiLU-conv, the
+    embedding as a scale-shift of the second GroupNorm (adaGN) or added
+    before it, SiLU, dropout, a zero-initialised ``out_conv``; the skip is
+    the identity, or a 1x1 (3x3 with ``use_conv_shortcut``) conv when the
+    width changes.  ``x`` NCHW, ``emb (B, emb_dim)``."""
+
+    def __init__(self, in_channels: int, out_channels: int, emb_dim: int,
+                 dropout: float = 0.0, use_scale_shift_norm: bool = False,
+                 use_conv_shortcut: bool = False, num_groups: int = 32,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dropout = dropout
+        self.use_scale_shift_norm = use_scale_shift_norm
+        self.norm1 = GroupNorm(num_groups, in_channels)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1,
+                            dtype=dtype)
+        self.emb_proj = Linear(emb_dim, out_channels * (
+            2 if use_scale_shift_norm else 1), dtype=dtype)
+        self.norm2 = GroupNorm(num_groups, out_channels)
+        self.out_conv = Conv2d(out_channels, out_channels, 3, padding=1,
+                               dtype=dtype, zero_init=True)
+        self.skip = None
+        if in_channels != out_channels:
+            k = 3 if use_conv_shortcut else 1
+            self.skip = Conv2d(in_channels, out_channels, k, padding=k // 2,
+                               dtype=dtype)
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = self.conv1(F.silu(self.norm1(x)))
+        e = self.emb_proj(F.silu(emb))[:, :, None, None]
+        if self.use_scale_shift_norm:
+            scale, shift = e.chunk(2, dim=1)
+            h = self.norm2(h) * (1.0 + scale) + shift
+        else:
+            h = self.norm2(h + e)
+        h = F.silu(h)
+        if train:
+            h = dropout(h, self.dropout, generator)
+        h = self.out_conv(h)
+        return (x if self.skip is None else self.skip(x)) + h
+
+
+class QKVAttentionBlock(nn.Module):
+    """OpenAI multi-head self-attention (``unet_design_tpu/ops/blocks.py:
+    404-427``): GroupNorm, a fused ``qkv`` dense layer, q and k each scaled
+    by ``dh^-1/4``, the explicit products with the softmax over the keys in
+    fp32 (cast back to the compute dtype), a zero-initialised ``proj_out``
+    and the residual.  ``x`` NCHW."""
+
+    def __init__(self, channels: int, num_heads: int = 1,
+                 num_groups: int = 32, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if channels % num_heads:
+            raise ValueError(f"{channels} channels in {num_heads} heads")
+        self.num_heads = num_heads
+        self.compute_dtype = dtype
+        self.norm = GroupNorm(num_groups, channels)
+        self.qkv = Linear(channels, 3 * channels, dtype=dtype)
+        self.proj_out = Linear(channels, channels, dtype=dtype,
+                               zero_init=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, hh, ww = x.shape
+        nh, dh, n = self.num_heads, c // self.num_heads, hh * ww
+        h = self.norm(x).flatten(2).transpose(1, 2)            # (b, n, c)
+        # (b, n, heads, 3 dh) -> three (b * heads, n, dh)
+        qkv = self.qkv(h).view(b, n, nh, 3 * dh).transpose(1, 2)
+        q, k, v = (z.reshape(b * nh, n, dh) for z in qkv.chunk(3, dim=-1))
+        scale = 1.0 / dh ** 0.25
+        w = torch.bmm(q * scale, (k * scale).transpose(1, 2))
+        w = torch.softmax(w.float(), dim=-1).to(self.compute_dtype)
+        a = torch.bmm(w, v).view(b, nh, n, dh).transpose(1, 2).reshape(
+            b, n, c)
+        a = self.proj_out(a)
+        return x + a.transpose(1, 2).reshape(b, c, hh, ww)
+
+
 # flax's lecun_normal draws a normal truncated at +-2 and rescales it by this
 # constant (the std of a unit normal truncated there) to keep unit variance
 _TRUNC_STD = 0.87962566103423978
@@ -328,18 +421,22 @@ def flax_default_init_(module: nn.Module,
                        generator: Optional[torch.Generator] = None
                        ) -> nn.Module:
     """Re-initialise ``module`` the way flax initialises its counterpart:
-    conv kernels LeCun-normal (variance ``1/fan_in``, truncated at two
-    standard deviations), biases zero, GroupNorm scales one."""
+    conv and dense kernels LeCun-normal (variance ``1/fan_in``, truncated at
+    two standard deviations) or zero where the layer's ``zero_init`` says
+    so, biases zero, GroupNorm scales one."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             w = m.weight
             # fan_in: input channels x kernel area (ConvTranspose2d keeps its
             # input channels first)
-            fan_in = w.shape[1 if isinstance(m, nn.Conv2d) else 0] * \
-                w.shape[2] * w.shape[3]
+            fan_in = (w[0].numel() if not isinstance(m, nn.ConvTranspose2d)
+                      else w.shape[0] * w.shape[2] * w.shape[3])
             std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                  generator=generator)
+            if getattr(m, "zero_init", False):
+                w.zero_()
+            else:
+                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.GroupNorm):

@@ -1,11 +1,14 @@
-"""Discrete-time DDPM: schedule, training loss and three samplers.
+"""Diffusion processes: the discrete-time DDPM (diff_cifar) and the VP
+diffusion (diff_mnist).
 
-Port of the DDPM part of ``unet_design_tpu/process/diffusion.py``
-(``diff_cifar/diffusion.py:17-222``): linear betas, the Algorithm-1 loss
+Port of ``unet_design_tpu/process/diffusion.py``: for the DDPM
+(``diff_cifar/diffusion.py:17-222``) linear betas, the Algorithm-1 loss
 with multi-resolution noise targets, the T-step ancestral sampler
 (eps / xstart / xprev means, fixedlarge / fixedsmall variances), DDIM over
-a sub-sequence of the schedule and DPM-Solver++(2M).  ``VPDiffusion``
-(diff_mnist) waits for its slice.
+a sub-sequence of the schedule and DPM-Solver++(2M); and
+:class:`VPDiffusion` (``:304-429``, ``torch_ddpm/ddpm/diffusion.py:
+41-174``), its staged timestep draw, (weighted) multi-res loss and
+reverse-SDE sampler.
 
 Schedule buffers are computed in float64 numpy and stored as fp32, as in
 the JAX package.  The samplers are Python loops over ``model_fn(x, t,
@@ -26,6 +29,7 @@ JAX package's draws.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -295,3 +299,166 @@ def dpm_solver_sample(model_fn: ModelFn, schedule: DDPMSchedule,
              - torch.sqrt(ab_next) * (torch.exp(-h) - 1.0) * d)
         x0_prev, lam_prev = x0, lam_t
     return x.clamp(-1.0, 1.0) if clip else x
+
+
+# ----------------------------------------------------------------------------
+# Continuous-time VP diffusion (diff_mnist)
+# ----------------------------------------------------------------------------
+
+def jax_linspace(start: float, stop: float, num: int) -> torch.Tensor:
+    """``jnp.linspace(start, stop, num)`` in fp32 as XLA computes it on the
+    CPU: ``start * (1 - s) + stop * s`` with ``s = i * (1 / (num - 1))``,
+    the end point appended.  Bit for bit at the sampler's step counts
+    (N = 30 and the tests' few steps); at a thousand steps some values
+    differ from XLA's by an ulp."""
+    start_t = torch.tensor(start, dtype=torch.float32)
+    stop_t = torch.tensor(stop, dtype=torch.float32)
+    if num == 1:
+        return start_t[None]
+    div = num - 1
+    step = torch.arange(div, dtype=torch.float32) * (
+        1.0 / torch.tensor(div, dtype=torch.float32))
+    return torch.cat([start_t * (1 - step) + stop_t * step, stop_t[None]])
+
+
+@dataclasses.dataclass(frozen=True)
+class VPDiffusion:
+    """The VP diffusion of diff_mnist (``unet_design_tpu/process/
+    diffusion.py:304-429``).  Buffers are fp32 tensors of length N,
+    computed in float64 numpy."""
+
+    discrete_betas: torch.Tensor
+    alphas: torch.Tensor
+    sqrt_alphas_cumprod: torch.Tensor
+    sqrt_1m_alphas_cumprod: torch.Tensor
+    N: int
+    T: float
+    eps: float
+    multi_res_loss: bool
+    weighted_multi_res_loss: bool
+
+    @classmethod
+    def create(cls, beta_min: float = 0.1, beta_max: float = 20.0,
+               N: int = 1000, eps: float = 1e-3, T: float = 1.0,
+               multi_res_loss: bool = False,
+               weighted_multi_res_loss: bool = False) -> "VPDiffusion":
+        betas = np.linspace(beta_min / N, beta_max / N, N, dtype=np.float64)
+        if betas[-1] >= 1.0:
+            warnings.warn(
+                f"beta_max/N = {betas[-1]:.3f} >= 1: alpha goes non-positive "
+                "and the VP schedule buffers contain NaN (the reference "
+                "torch_ddpm/ddpm/diffusion.py:55-69 has the same failure "
+                "mode); increase N or lower beta_max.", stacklevel=2)
+        alphas = 1.0 - betas
+        acp = np.cumprod(alphas)
+
+        def f32(a):
+            return torch.from_numpy(np.asarray(a, np.float32))
+        return cls(discrete_betas=f32(betas), alphas=f32(alphas),
+                   sqrt_alphas_cumprod=f32(np.sqrt(acp)),
+                   sqrt_1m_alphas_cumprod=f32(np.sqrt(1.0 - acp)),
+                   N=N, T=T, eps=eps, multi_res_loss=multi_res_loss,
+                   weighted_multi_res_loss=weighted_multi_res_loss)
+
+    def to(self, device) -> "VPDiffusion":
+        return dataclasses.replace(self, **{
+            f: getattr(self, f).to(device) for f in (
+                "discrete_betas", "alphas", "sqrt_alphas_cumprod",
+                "sqrt_1m_alphas_cumprod")})
+
+    def t_range(self, stage: Optional[int] = None,
+                n_stages: Optional[int] = None) -> Tuple[int, int]:
+        """``[low, high)`` of the timestep indices: all N, or with staged
+        training only the stage's top interval (``diffusion.py:71-84``)."""
+        if stage is None:
+            return 0, self.N
+        if n_stages is None:
+            raise ValueError("a staged draw needs n_stages")
+        return int(self.N * ((n_stages - stage - 1) / n_stages)), self.N
+
+    def sample_t(self, generator: Optional[torch.Generator], batch: int,
+                 stage: Optional[int] = None, n_stages: Optional[int] = None,
+                 device=None) -> torch.Tensor:
+        """Uniform timestep indices ``(batch,)`` from :meth:`t_range`."""
+        low, high = self.t_range(stage, n_stages)
+        return torch.randint(low, high, (batch,), generator=generator,
+                             device=device)
+
+    def sample_x(self, x0: torch.Tensor, t: torch.Tensor,
+                 noise: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Forward noising ``(x_t, noise)`` (``diffusion.py:86-94``); the
+        noise is drawn from ``generator`` unless given."""
+        if noise is None:
+            noise = torch.randn(x0.shape, generator=generator,
+                                device=x0.device, dtype=x0.dtype)
+        nd = x0.ndim
+        x_t = (_extract(self.sqrt_alphas_cumprod, t, nd) * x0
+               + _extract(self.sqrt_1m_alphas_cumprod, t, nd) * noise)
+        return x_t, noise
+
+    def loss(self, model_output, noise, last_loss_schedule_weight: float = 1.0
+             ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """(Optionally weighted) multi-res MSE (``diffusion.py:97-134``):
+        ``model_output`` and ``noise`` are per-level lists, coarsest first,
+        in multi-res mode.  The weights are the intended ``1 / res^2``
+        normalised to sum 1 (the reference writes ``^``, an XOR); the last
+        level's is scaled by ``last_loss_schedule_weight``."""
+        if not self.multi_res_loss:
+            return ((model_output - noise) ** 2).mean(), []
+        k = len(model_output)
+        if self.weighted_multi_res_loss:
+            w = np.array([1.0 / (out.shape[1] ** 2) for out in model_output])
+            weights = (w / w.sum()).tolist()
+        else:
+            weights = [1.0] * k
+        loss = 0.0
+        loss_list = []
+        for i, (out, n) in enumerate(zip(model_output, noise)):
+            l = ((out - n) ** 2).mean()
+            loss = loss + l * (weights[i] * (last_loss_schedule_weight
+                                             if i == k - 1 else 1.0))
+            loss_list.append(l)
+        return loss, loss_list
+
+    def reverse_mean_scale(self, model_fn: ModelFn, x_t: torch.Tensor,
+                           t: torch.Tensor, n_levels_used: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Score-based reverse mean and scale (``diffusion.py:136-151``):
+        the model sees the fractional ``t (N - 1) / T``, the schedule is
+        indexed at its ``int`` truncation."""
+        timestep = t * (self.N - 1) / self.T
+        t_label = timestep.long()
+        nd = x_t.ndim
+        beta = _extract(self.discrete_betas, t_label, nd)
+        pred = model_fn(x_t, timestep, n_levels_used)
+        if self.multi_res_loss:
+            pred = pred[-1]
+        std = _extract(self.sqrt_1m_alphas_cumprod, t_label, nd)
+        score = -pred / std
+        x_mean = (x_t + beta * score) / torch.sqrt(1.0 - beta)
+        return x_mean, torch.sqrt(beta)
+
+    @torch.no_grad()
+    def reverse_sample(self, model_fn: ModelFn, x_T: torch.Tensor,
+                       n_levels_used: int = -1, N: Optional[int] = None,
+                       T: Optional[float] = None, eps: Optional[float] = None,
+                       generator: Optional[torch.Generator] = None,
+                       noises: Optional[Sequence[torch.Tensor]] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Reverse-SDE sampler (``diffusion.py:7-38,153-174``) over
+        ``linspace(T, eps, N)``: returns ``(x, x_mean)`` of the last step.
+        Step ``i``'s noise is ``noises[i]`` or drawn from ``generator``
+        (every step draws, the last one too, as the JAX scan does)."""
+        N = N if N is not None else self.N
+        T = T if T is not None else self.T
+        eps = eps if eps is not None else self.eps
+        x = x_mean = x_T
+        for i, t in enumerate(jax_linspace(T, eps, N).tolist()):
+            t_vec = torch.full((x.shape[0],), t, dtype=torch.float32,
+                               device=x.device)
+            x_mean, scale = self.reverse_mean_scale(model_fn, x, t_vec,
+                                                    n_levels_used)
+            x = x_mean + scale * _step_noise(noises, i, x, generator)
+        return x, x_mean

@@ -7,6 +7,8 @@ gradient clipping per stage (``:374-377, 425``), freezing of the coarser
 levels (``:311-371``), an EMA of the trainable parameters (``:57-77, 429``),
 Haar downsampling of each batch to the stage's resolution (``:403-419``),
 the multi-resolution noise loss, checkpoints and full-fidelity resume.
+The staged step loop is :func:`~unet_design_tpu_torch.train.trainer.
+run_stages`, which the diff_mnist trainer shares.
 
 The dataset lives on the device; each step's indices come from the JAX
 package's numpy stream (``infinite_batches``) and its flips from
@@ -24,10 +26,12 @@ all gradients before clipping, frozen ones included, so frozen parameters
 get gradients though neither Adam nor the EMA touches them; the warmup
 restarts at every stage, at a learning rate of 0 on the stage's first step.
 
+Every ``train.sample_step`` steps a grid of samples from the EMA
+parameters is logged at every active resolution (``:383-402``).
+
 Not ported yet (``NotImplementedError``, ``ROADMAP.md`` queue A): FID/IS
-evaluation (``train.eval_step``, ``train.test_id``), in-training sample
-grids (``train.sample_step``), ``parallel.*`` > 1 and the host batches
-that serve it (``data.device_cache=false``).
+evaluation (``train.eval_step``, ``train.test_id``), ``parallel.*`` > 1
+and the host batches that serve it (``data.device_cache=false``).
 
 Run: ``python -m unet_design_tpu_torch.tasks.diff_cifar --config <yaml>
 [k=v ...]``.
@@ -36,24 +40,23 @@ Run: ``python -m unet_design_tpu_torch.tasks.diff_cifar --config <yaml>
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
-import time
 from typing import Callable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from unet_design_tpu_torch.data import image as image_data
-from unet_design_tpu_torch.data import loader as loader_lib
 from unet_design_tpu_torch.models.multires_unet import MultiResUNet
-from unet_design_tpu_torch.ops import blocks, haar, wavelet
+from unet_design_tpu_torch.ops import blocks, haar
 from unet_design_tpu_torch.parallel.mesh import ParallelConfig
 from unet_design_tpu_torch.process import diffusion
 from unet_design_tpu_torch.tasks.pde import resolve_device
 from unet_design_tpu_torch.train import freezing, schedules, trainer
-from unet_design_tpu_torch.train.checkpoint import CheckpointManager
 from unet_design_tpu_torch.train.ema import ema_update
 from unet_design_tpu_torch.utils import config as config_lib
+from unet_design_tpu_torch.utils import visualization
 from unet_design_tpu_torch.utils.logging import MetricsLogger, get_logger
 
 log = get_logger(__name__)
@@ -106,7 +109,7 @@ class TrainConfig:
     ema_decay: float = 0.9999
     freeze_lower_res: bool = False
     seed: int = 0
-    sample_step: int = 0         # not ported yet: must stay 0
+    sample_step: int = 0         # 0 disables the EMA sample grids
     sample_size: int = 25
     save_step: int = 0
     eval_step: int = 0           # not ported yet: must stay 0
@@ -149,14 +152,19 @@ def build_model(cfg: Config) -> MultiResUNet:
 
 
 def make_sampler(cfg: Config, model: MultiResUNet,
-                 sch: diffusion.DDPMSchedule, n_levels_used: int
+                 sch: diffusion.DDPMSchedule, n_levels_used: int,
+                 params: Optional[Mapping[str, torch.Tensor]] = None
                  ) -> Callable[..., torch.Tensor]:
-    """``sampler(x_T, generator=None) -> x_0`` with ``model``'s current
-    parameters (load the EMA first), by ``cfg.diffusion.sampler``."""
+    """``sampler(x_T, generator=None) -> x_0`` with ``params`` (by name,
+    for instance the EMA) or else ``model``'s own parameters, by
+    ``cfg.diffusion.sampler``."""
     d = cfg.diffusion
 
+    weights = dict(model.named_parameters() if params is None else params)
+
     def model_fn(x, t, n):
-        return model(x, t, n_levels_used=n)
+        return torch.func.functional_call(model, weights, (x, t),
+                                          {"n_levels_used": n})
 
     def sampler(x_T: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -193,6 +201,8 @@ def check_config(cfg: Config) -> None:
         raise ValueError(f"sampler {cfg.diffusion.sampler!r}")
     if cfg.diffusion.sample_steps < 2:
         raise ValueError("diffusion.sample_steps must be >= 2")
+    if cfg.train.sample_step > 0:
+        visualization.require_matplotlib("train.sample_step")
 
 
 def _check_ported(cfg: Config) -> None:
@@ -202,10 +212,6 @@ def _check_ported(cfg: Config) -> None:
         raise NotImplementedError(
             "FID/IS evaluation (train.eval_step, train.test_id) " + todo
             .format("evalx/inception.py + evalx/fid.py"))
-    if cfg.train.sample_step > 0:
-        raise NotImplementedError("in-training sample grids "
-                                  "(train.sample_step) " + todo.format(
-                                      "utils/visualization.py"))
     p = cfg.parallel
     if max(p.data, p.model, p.spatial, p.num_processes) > 1:
         raise NotImplementedError("parallel.* > 1 " + todo.format(
@@ -214,12 +220,6 @@ def _check_ported(cfg: Config) -> None:
         raise NotImplementedError(
             "data.device_cache=false (host batches, which only data "
             "parallelism needs) " + todo.format("data parallelism"))
-
-
-def stage_seed(seed: int, stage: int) -> int:
-    """Seed of a stage's generator, from ``(seed, 10_000 + stage)``."""
-    return int(np.random.SeedSequence([seed, 10_000 + stage])
-               .generate_state(1)[0])
 
 
 def draw_t_noise(generator: torch.Generator, x0: torch.Tensor, T: int,
@@ -257,7 +257,6 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
     device = resolve_device(cfg.device)
     tc = cfg.train
     data = load_data(cfg.data)
-    highest_res = data.shape[1]
 
     model = build_model(cfg)
     n_levels = model.n_levels
@@ -269,162 +268,75 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
         model.load_state_dict(params, strict=True)
     model.to(device)
     named = dict(model.named_parameters())
-    for p in named.values():
-        # frozen parameters get gradients too: train/grad_norm counts them
-        p.requires_grad_(True)
     ema = {n: p.detach().clone() for n, p in named.items()}
 
     metrics = MetricsLogger(tc.logdir)
-    ckpt = CheckpointManager(os.path.join(tc.logdir, "ckpt"))
     config_lib.save_yaml(cfg, os.path.join(tc.logdir, "config.yaml"))
     stages = trainer.StageSpec.from_schedule(tc.num_iterations_list,
                                              n_levels)
     sequ = len(stages) > 1
-
-    # resume: a run id's checkpoint (or a newer one of this run), else this
-    # run's latest; data stream, flips, draws, Adam moments and warmup
-    # position all continue where the interrupted run stopped
-    src_ckpt, resume_step, raw = ckpt, 0, None
-    if tc.train_id:
-        src_ckpt = CheckpointManager(os.path.join(
-            config_lib.resolve_run_dir(tc.train_id), "ckpt"))
-        resume_step = tc.restore_iter or src_ckpt.latest_step() or 0
-        if not resume_step:
-            raise FileNotFoundError(
-                f"train_id {tc.train_id!r}: no checkpoint to restore")
-        own_latest = ckpt.latest_step()
-        if own_latest is not None and own_latest > resume_step:
-            src_ckpt, resume_step = ckpt, own_latest
-    elif tc.resume and ckpt.latest_step() is not None:
-        resume_step = ckpt.latest_step()
-    if resume_step:
-        raw = src_ckpt.restore(resume_step)
-        model.load_state_dict(raw["model"])
-        for n, v in raw["ema"].items():
-            ema[n].copy_(v)
-        log.info("Resumed from checkpoint step %d", resume_step)
-
     data_dev = torch.from_numpy(data).to(device)
-    batches = loader_lib.infinite_batches([np.arange(len(data))],
-                                          cfg.data.batch_size, seed=tc.seed,
-                                          start_step=resume_step)
-    step_count = 0
-    opt = gen = None
-    opt_count = 0
 
-    def save_full():
-        ckpt.save(step_count, {
-            "model": model.state_dict(), "ema": ema,
-            "optimizer": opt.state_dict(), "opt_count": opt_count,
-            "generator": gen.get_state(), "step": step_count})
+    def labels_fn(spec):
+        return (freezing.multires_unet_labels(named, n_levels,
+                                              spec.n_levels_used)
+                if tc.freeze_lower_res and sequ
+                else freezing.all_train_labels(named))
 
-    def finish() -> trainer.TrainState:
-        metrics.close()
-        return trainer.TrainState(model=model, optimizer=opt,
-                                  step=step_count, ema=ema)
+    def batch_fn(idx, step):
+        # stateless per-step flips: the same under resume
+        return image_data.random_horizontal_flip(
+            data_dev[torch.as_tensor(idx, device=device)],
+            np.random.default_rng((tc.seed, step)))
 
-    if tc.stop_after_steps and resume_step >= tc.stop_after_steps:
-        # resumed at (or past) the stop point: nothing to train
-        step_count = resume_step
-        return finish()
+    def loss_fn(stage, x0, step):
+        gen = stage.generator
+        t, noise = draw_t_noise(gen, x0, sch.T, step)
+        return diffusion.ddpm_loss(
+            lambda x, t, nl: model(x, t, n_levels_used=nl, train=True,
+                                   generator=gen),
+            sch, x0, t, noise, n_levels_used=stage.spec.n_levels_used,
+            n_levels=n_levels, n_downsample=stage.spec.n_downsample,
+            multi_res_loss=cfg.model.multi_res_loss, sequ_train_algo=sequ,
+            pyramid_fn=haar.haar_pyramid)
 
-    for stage in stages:
-        n, nd = stage.n_levels_used, stage.n_downsample
-        cur_res = highest_res // 2 ** nd
-        if step_count + stage.num_iterations <= resume_step:
-            step_count += stage.num_iterations   # stage fully completed
-            continue
-        labels = (freezing.multires_unet_labels(named, n_levels, n)
-                  if tc.freeze_lower_res and sequ
-                  else freezing.all_train_labels(named))
-        keep = freezing.trainable(labels)
-        train_params = [p for name, p in named.items() if name in keep]
-        # a fresh Adam and warmup every stage (main.py:374-377)
-        opt = trainer.make_optimizer(train_params, tc.lr)
-        opt_count = 0
-        lr_at = schedules.warmup_lr(tc.lr, tc.warmup)
-        gen = torch.Generator(device).manual_seed(stage_seed(tc.seed,
-                                                             stage.index))
-        if step_count < resume_step < step_count + stage.num_iterations:
-            # mid-stage resume: moments, warmup position and draws continue
-            opt.load_state_dict(raw["optimizer"])
-            opt_count = int(raw["opt_count"])
-            gen.set_state(raw["generator"])
-        log.info("Stage %d/%d: res=%d n_levels_used=%d iters=%d",
-                 stage.index + 1, stage.n_stages, cur_res, n,
-                 stage.num_iterations)
+    def on_step(stage, x0, step):
+        if tc.sample_step and step % tc.sample_step == 0:
+            _log_sample_grids(cfg, model, ema, sch, metrics, device, step,
+                              stage.res, stage.spec.n_levels_used,
+                              data.shape[-1])
 
-        def model_fn(x, t, nl, gen=gen):
-            return model(x, t, n_levels_used=nl, train=True, generator=gen)
-
-        stage_end = step_count + stage.num_iterations
-        step_count = max(step_count, resume_step)
-        first = step_count
-        model.train()
-        t0 = time.monotonic()
-        while step_count < stage_end:
-            (batch,) = next(batches)
-            # stateless per-step flips: the same under resume
-            flip_rng = np.random.default_rng((tc.seed, step_count))
-            x0 = image_data.random_horizontal_flip(
-                data_dev[torch.as_tensor(batch, device=device)], flip_rng)
-            if sequ and nd:
-                x0 = wavelet.haar_downsample(x0, nd)
-            t, noise = draw_t_noise(gen, x0, sch.T, step_count)
-            opt.param_groups[0]["lr"] = lr_at(opt_count)
-            loss, loss_list = diffusion.ddpm_loss(
-                model_fn, sch, x0, t, noise, n_levels_used=n,
-                n_levels=n_levels, n_downsample=nd,
-                multi_res_loss=cfg.model.multi_res_loss,
-                sequ_train_algo=sequ, pyramid_fn=haar.haar_pyramid)
-            model.zero_grad(set_to_none=True)
-            loss.backward()
-            grad_norm = trainer.global_norm([p.grad for p in named.values()])
-            if tc.grad_clip is not None:
-                trainer.clip_by_global_norm_([p.grad for p in train_params],
-                                             tc.grad_clip)
-            opt.step()
-            opt_count += 1
-            ema_update(ema, named, tc.ema_decay, keep)
-            if step_count % tc.metrics_every_iters == 0:
-                m = {"train/loss": loss.item(),
-                     "train/grad_norm": grad_norm.item()}
-                for k, l in enumerate(loss_list):
-                    res = cur_res // 2 ** (len(loss_list) - 1 - k)
-                    m[f"train/res_{res}_loss"] = l.item()
-                metrics.log(m, step_count)
-            step_count += 1
-            # saved after the increment: checkpoint k means k steps done,
-            # which is where the data stream's fast-forward resumes
-            saved_now = tc.save_step and step_count % tc.save_step == 0
-            if saved_now:
-                save_full()
-            stopped = trainer.stop_file_present(STOP_FILES, tc.logdir)
-            if stopped or (tc.stop_after_steps
-                           and step_count >= tc.stop_after_steps):
-                if not saved_now:
-                    save_full()
-                log.info("Stopped at step %d (%s)", step_count,
-                         f"stop file {stopped}" if stopped
-                         else "train.stop_after_steps")
-                _log_speed(metrics, device, t0, step_count - first,
-                           step_count)
-                return finish()
-        _log_speed(metrics, device, t0, step_count - first, step_count)
-
-    if opt is not None and ckpt.latest_step() != step_count:
-        save_full()
-    return finish()
+    # a fresh Adam and warmup every stage (main.py:374-377); the EMA covers
+    # every trainable parameter, reached or not
+    step, opt, _ = trainer.run_stages(
+        model, stages, tc, highest_res=data.shape[1], n_items=len(data),
+        batch_size=cfg.data.batch_size, save_every=tc.save_step,
+        device=device, metrics=metrics, labels_fn=labels_fn,
+        batch_fn=batch_fn, loss_fn=loss_fn,
+        lr_at=schedules.warmup_lr(tc.lr, tc.warmup),
+        on_update=lambda stage: ema_update(ema, named, tc.ema_decay,
+                                           stage.keep),
+        on_step=on_step, extra_state={"ema": ema}, stop_files=STOP_FILES)
+    metrics.close()
+    return trainer.TrainState(model=model, optimizer=opt, step=step, ema=ema)
 
 
-def _log_speed(metrics: MetricsLogger, device: torch.device, t0: float,
-               n_steps: int, step: int) -> None:
-    """The stage's steps/s since ``t0``, after the device finished."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    dt = time.monotonic() - t0
-    metrics.log({"train/stage_seconds": dt,
-                 "train/steps_per_sec": n_steps / dt if dt else 0.0}, step)
+def _log_sample_grids(cfg: Config, model: MultiResUNet,
+                      ema: Mapping[str, torch.Tensor],
+                      sch: diffusion.DDPMSchedule, metrics: MetricsLogger,
+                      device: torch.device, step: int, cur_res: int, n: int,
+                      in_ch: int) -> None:
+    """A grid of ``train.sample_size`` samples from the EMA parameters at
+    every active resolution (``unet_design_tpu/tasks/diff_cifar.py:
+    383-402``), each from its own ``x_T``; seeded by ``(seed, step, res)``."""
+    for r in [cur_res // 2 ** i for i in range(n)]:
+        nl = n - int(math.log2(cur_res // r))
+        gen = trainer.seeded_generator(device, cfg.train.seed, step, r)
+        x_T = torch.randn((cfg.train.sample_size, r, r, in_ch),
+                          generator=gen, device=device)
+        imgs = make_sampler(cfg, model, sch, nl, ema)(x_T, generator=gen)
+        metrics.log_figure(f"samples/res_{r}", visualization.plot_square_grid(
+            imgs, f"res {r}, iter {step}"), step)
 
 
 def main(argv=None):

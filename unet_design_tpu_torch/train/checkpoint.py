@@ -10,9 +10,11 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+
+from unet_design_tpu_torch.utils.config import resolve_run_dir
 
 
 class CheckpointManager:
@@ -62,3 +64,25 @@ class CheckpointManager:
             with open(path) as f:
                 return json.load(f)
         return None
+
+
+def resume_source(ckpt: CheckpointManager, train_id: str, restore_iter: int,
+                  resume: bool) -> Tuple[CheckpointManager, int]:
+    """Where a run starts: ``(manager, step)``, step 0 for a fresh run.
+
+    With ``train_id``, the run directory's checkpoint ``restore_iter`` (0:
+    its latest), unless this run's own store holds a newer one, which a
+    continuation that was itself interrupted must pick up; else, with
+    ``resume``, this run's latest checkpoint."""
+    if train_id:
+        src = CheckpointManager(os.path.join(resolve_run_dir(train_id),
+                                             "ckpt"))
+        step = restore_iter or src.latest_step() or 0
+        if not step:
+            raise FileNotFoundError(
+                f"train_id {train_id!r}: no checkpoint to restore")
+        own = ckpt.latest_step()
+        return (ckpt, own) if own is not None and own > step else (src, step)
+    if resume and ckpt.latest_step() is not None:
+        return ckpt, ckpt.latest_step()
+    return ckpt, 0

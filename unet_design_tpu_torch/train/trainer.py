@@ -1,20 +1,32 @@
 """Training core: per-stage optimizers, gradient clipping, stages, train
-state, stop files.
+state, stop files, and the staged step loop of the diffusion trainers.
 
-Port of the parts of ``unet_design_tpu/train/trainer.py`` the PDE and DDPM
-trainers use.  A fresh optimizer is made at every stage (the reference
-re-creates it, and with it the LR schedule's step count); it holds only the
-stage's trainable parameters.
+Port of the parts of ``unet_design_tpu/train/trainer.py`` the PDE and
+diffusion trainers use.  A fresh optimizer is made at every stage (the
+reference re-creates it, and with it the LR schedule's step count); it holds
+only the stage's trainable parameters.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
-from typing import Dict, Iterable, List, Optional, Sequence
+import time
+from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
+                    Sequence, Set, Tuple)
 
+import numpy as np
 import torch
 import torch.nn as nn
+
+from unet_design_tpu_torch.data import loader as loader_lib
+from unet_design_tpu_torch.ops import wavelet
+from unet_design_tpu_torch.train import freezing
+from unet_design_tpu_torch.train.checkpoint import (CheckpointManager,
+                                                    resume_source)
+
+log = logging.getLogger(__name__)
 
 # A stop file asks a running trainer to checkpoint and exit at its next
 # epoch boundary.  Relative names are looked up in the run's logdir (the
@@ -106,3 +118,186 @@ class TrainState:
     optimizer: Optional[torch.optim.Optimizer]
     step: int
     ema: Optional[Dict[str, torch.Tensor]] = None
+
+
+def seeded_generator(device, *key: int) -> torch.Generator:
+    """A generator on ``device`` seeded from the integers ``key`` (the JAX
+    trainers' ``fold_in`` chains: a stage's draws come from ``(seed,
+    10_000 + stage)``)."""
+    return torch.Generator(device).manual_seed(
+        int(np.random.SeedSequence(list(key)).generate_state(1)[0]))
+
+
+def log_stage_speed(metrics, device: torch.device, t0: float, n_steps: int,
+                    step: int) -> None:
+    """Log the stage's seconds and steps/s since ``t0`` (``time.monotonic``)
+    once the device has finished."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.monotonic() - t0
+    metrics.log({"train/stage_seconds": dt,
+                 "train/steps_per_sec": n_steps / dt if dt else 0.0}, step)
+
+
+def loss_metrics(loss: torch.Tensor, loss_list: Sequence[torch.Tensor],
+                 grad_norm: torch.Tensor, res: int) -> Dict[str, float]:
+    """``train/loss``, ``train/grad_norm`` and ``train/res_{r}_loss`` for
+    each of ``loss_list``'s terms, coarsest first, the last at ``res``."""
+    m = {"train/loss": loss.item(), "train/grad_norm": grad_norm.item()}
+    for k, term in enumerate(loss_list):
+        m[f"train/res_{res // 2 ** (len(loss_list) - 1 - k)}_loss"] = \
+            term.item()
+    return m
+
+
+@dataclasses.dataclass
+class Stage:
+    """A stage as :func:`run_stages` runs it."""
+
+    spec: StageSpec
+    res: int                          # the stage's training resolution
+    keep: Set[str]                    # names of its trainable parameters
+    generator: torch.Generator        # its draws: (seed, 10_000 + index)
+    optimizer: torch.optim.Optimizer
+
+
+def run_stages(model: nn.Module, stages: Sequence[StageSpec], tc: Any, *,
+               highest_res: int, n_items: int, batch_size: int,
+               save_every: int, device: torch.device, metrics: Any,
+               labels_fn: Callable[[StageSpec], Mapping[str, str]],
+               batch_fn: Callable[[np.ndarray, int], torch.Tensor],
+               loss_fn: Callable[[Stage, torch.Tensor, int],
+                                 Tuple[torch.Tensor,
+                                       Sequence[torch.Tensor]]],
+               lr_at: Callable[[int], float],
+               stop_files: Sequence[str],
+               on_update: Optional[Callable[[Stage], None]] = None,
+               on_step: Optional[Callable[[Stage, torch.Tensor, int],
+                                          None]] = None,
+               extra_state: Optional[Mapping[str, Mapping[
+                   str, torch.Tensor]]] = None
+               ) -> Tuple[int, Optional[torch.optim.Optimizer], bool]:
+    """The staged step loop of the diffusion trainers (the JAX
+    ``tasks/diff_cifar.py`` and ``tasks/diff_mnist.py`` ``train``).
+
+    ``tc`` is the task's train config (``seed``, ``lr``, ``grad_clip``,
+    ``metrics_every_iters``, ``stop_after_steps``, ``logdir``,
+    ``train_id``, ``restore_iter``, ``resume``).  Every stage gets
+    ``labels_fn(spec)``'s trainable parameters, a fresh Adam over them and
+    a generator seeded from ``(seed, 10_000 + index)``.  A step takes the
+    next indices of the numpy stream (``infinite_batches``), makes the
+    batch with ``batch_fn(indices, step)`` and, when staged, Haar-downsamples
+    it to the stage's resolution; ``loss_fn(stage, x0, step)`` gives the
+    loss and its per-resolution terms.  Parameters the stage never reaches
+    get zero gradients (optax's); ``train/grad_norm`` covers all gradients,
+    clipping only the trainable ones.  Then the optimizer steps at
+    ``lr_at(steps done in the stage)``, ``on_update(stage)`` runs (an EMA),
+    metrics are logged every ``tc.metrics_every_iters`` steps and
+    ``on_step(stage, x0, step)`` runs (figures).
+
+    A checkpoint ``k`` holds the state after ``k`` steps: the model, the
+    tensors of ``extra_state`` (``{"ema": ema}``), the optimizer and the
+    generator.  It is written every ``save_every`` steps, at a stop (one of
+    ``stop_files`` in ``tc.logdir``, or ``tc.stop_after_steps``) and at the
+    end.  A run restored from one (``tc.train_id`` or ``tc.resume``, through
+    :func:`~unet_design_tpu_torch.train.checkpoint.resume_source`) skips the
+    finished stages and continues the data stream, draws and moments bit
+    for bit.  Returns ``(global step, last optimizer, stopped)``.
+    """
+    named = dict(model.named_parameters())
+    for p in named.values():
+        # frozen parameters get gradients too: train/grad_norm counts them
+        p.requires_grad_(True)
+    extra_state = extra_state or {}
+    ckpt = CheckpointManager(os.path.join(tc.logdir, "ckpt"))
+    src_ckpt, resume_step = resume_source(ckpt, tc.train_id,
+                                          tc.restore_iter, tc.resume)
+    raw = None
+    if resume_step:
+        raw = src_ckpt.restore(resume_step)
+        model.load_state_dict(raw["model"])
+        for key, tensors in extra_state.items():
+            for n, v in raw[key].items():
+                tensors[n].copy_(v)
+        log.info("Resumed from checkpoint step %d", resume_step)
+    if tc.stop_after_steps and resume_step >= tc.stop_after_steps:
+        return resume_step, None, True   # nothing left to train
+
+    batches = loader_lib.infinite_batches([np.arange(n_items)], batch_size,
+                                          seed=tc.seed,
+                                          start_step=resume_step)
+    sequ = len(stages) > 1
+    step = 0
+    stage: Optional[Stage] = None
+
+    def save():
+        ckpt.save(step, {"model": model.state_dict(), **extra_state,
+                         "optimizer": stage.optimizer.state_dict(),
+                         "generator": stage.generator.get_state(),
+                         "step": step})
+
+    for spec in stages:
+        if step + spec.num_iterations <= resume_step:
+            step += spec.num_iterations   # stage fully completed
+            continue
+        keep = freezing.trainable(labels_fn(spec))
+        train_params = [p for n, p in named.items() if n in keep]
+        stage = Stage(spec, highest_res // 2 ** spec.n_downsample, keep,
+                      seeded_generator(device, tc.seed, 10_000 + spec.index),
+                      make_optimizer(train_params, tc.lr))
+        if step < resume_step:
+            # mid-stage resume: moments and draws continue
+            stage.optimizer.load_state_dict(raw["optimizer"])
+            stage.generator.set_state(raw["generator"])
+        log.info("Stage %d/%d: res=%d n_levels_used=%d iters=%d",
+                 spec.index + 1, spec.n_stages, stage.res,
+                 spec.n_levels_used, spec.num_iterations)
+        stage_start = step
+        stage_end = step + spec.num_iterations
+        step = first = max(step, resume_step)
+        t0 = time.monotonic()
+        while step < stage_end:
+            (idx,) = next(batches)
+            x0 = batch_fn(idx, step)
+            if sequ and spec.n_downsample:
+                x0 = wavelet.haar_downsample(x0, spec.n_downsample)
+            loss, loss_list = loss_fn(stage, x0, step)
+            model.zero_grad(set_to_none=True)
+            loss.backward()
+            for p in named.values():
+                if p.grad is None:   # not reached at this stage: optax's 0
+                    p.grad = torch.zeros_like(p)
+            grad_norm = global_norm([p.grad for p in named.values()])
+            if tc.grad_clip is not None:
+                clip_by_global_norm_([p.grad for p in train_params],
+                                     tc.grad_clip)
+            stage.optimizer.param_groups[0]["lr"] = lr_at(step - stage_start)
+            stage.optimizer.step()
+            if on_update:
+                on_update(stage)
+            if step % tc.metrics_every_iters == 0:
+                metrics.log(loss_metrics(loss, loss_list, grad_norm,
+                                         stage.res), step)
+            if on_step:
+                on_step(stage, x0, step)
+            step += 1
+            # saved after the increment: checkpoint k means k steps done,
+            # which is where the data stream's fast-forward resumes
+            saved_now = save_every and step % save_every == 0
+            if saved_now:
+                save()
+            stopped = stop_file_present(stop_files, tc.logdir)
+            if stopped or (tc.stop_after_steps
+                           and step >= tc.stop_after_steps):
+                if not saved_now:
+                    save()
+                log.info("Stopped at step %d (%s)", step,
+                         f"stop file {stopped}" if stopped
+                         else "train.stop_after_steps")
+                log_stage_speed(metrics, device, t0, step - first, step)
+                return step, stage.optimizer, True
+        log_stage_speed(metrics, device, t0, step - first, step)
+
+    if stage is not None and ckpt.latest_step() != step:
+        save()
+    return step, stage.optimizer if stage else None, False

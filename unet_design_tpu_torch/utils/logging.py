@@ -3,7 +3,8 @@
 Port of ``unet_design_tpu/utils/logging.py`` (``get_logger``,
 ``MetricsLogger``): each ``log`` call appends one line
 ``{"step": ..., "t": ..., <metric>: <float>, ...}`` to
-``<logdir>/metrics.jsonl``, the file the JAX trainer writes.
+``<logdir>/metrics.jsonl``, the file the JAX trainer writes; each
+``log_figure`` call saves a PNG under ``<logdir>/figures``.
 """
 
 from __future__ import annotations
@@ -44,6 +45,17 @@ class MetricsLogger:
         if self._file:
             self._file.write(json.dumps(record) + "\n")
             self._file.flush()
+
+    def log_figure(self, name: str, fig, step: int) -> None:
+        """Save a matplotlib figure as ``figures/<name>_<step>.png``
+        (``/`` in the name becomes ``_``), then close it."""
+        if self.logdir:
+            path = os.path.join(self.logdir, "figures")
+            os.makedirs(path, exist_ok=True)
+            fig.savefig(os.path.join(path, f"{name.replace('/', '_')}"
+                                           f"_{step}.png"))
+        import matplotlib.pyplot as plt
+        plt.close(fig)
 
     def close(self) -> None:
         if self._file:
