@@ -11,8 +11,10 @@ prints no result line); each prints its seconds:
    card, bit for bit, at the PDE path's shapes, the DDPM path's CIFAR
    shapes, the VP path's one-channel MNIST shapes, in bf16, off a 16-byte
    boundary and where the plan splits the width, and the multi-res targets
-   of the three paths through it; time it at (8, 128, 128, 3) L4, the
-   three CIFAR shapes and the three MNIST shapes beside its bound, the
+   of the three paths through it, and the WMH stage downsample's shapes
+   (image (32, 200, 200, 2) and mask (32, 200, 200, 1) at L4, L3, L2);
+   time it at (8, 128, 128, 3) L4, the three CIFAR shapes, the three MNIST
+   shapes and the six WMH shapes beside its bound, the
    plain version, the ``F.avg_pool2d`` chain (kernel and chain in turns)
    and an empty kernel on the same grid (the launch floor);
 3. train ``Unetbase-64_G`` at full width (hidden 64, 128x128, batch 8) with
@@ -40,7 +42,22 @@ prints no result line); each prints its seconds:
    finite losses, 0, 8, 8, 8 kernel launches, frozen parameters unchanged
    and trainable ones moved; sample 25 images at 8, 16, 32 and 64 px and
    super-resolve 32 -> 64 px from the stage-3 checkpoint, timed; and the
-   trained model's forward on the card against the CPU.
+   trained model's forward on the card against the CPU;
+7. train the WMH segmentation net (``configs/wmh.yaml``'s ``WMHSegUnet``:
+   hidden 16, GELU, DWT encoder, Adam 1e-4, batch 32, 200x200, no
+   augmentation; with the multi-res Dice loss and freezing) on
+   ``synthetic_wmh(320)`` (288 training, 32 validation, 160 test slices)
+   through epochs [1, 2, 1, 1], stopping and resuming after every epoch
+   (three stage boundaries and the middle of stage 1); check finite losses,
+   80 kernel launches (the image and mask of 9 steps and one validation
+   batch in each of the 4 epochs of stages 0-2, none in stage 3 or the
+   test), frozen parameters unchanged and trainable ones moved, 9
+   thresholds in each sweep, one overlay PNG per validation, and the best
+   model's forward on the card against the CPU; then the leave-one-out
+   protocol on synthetic patients in the challenge layout (48, 48 and 83
+   slices at 200x200), patient 0 held out, one epoch at batch 32, with
+   ``seg_unet`` (hidden 16) and the legacy 64-512 net: finite challenge
+   metrics, timed.
 
 Kernel launches are counted on each training path alone (the count is set
 to 0 just before it and read just after) and printed per path; the
@@ -149,7 +166,13 @@ def phase_kernel(device) -> dict:
              ((1, 64, 64, 2), 6, torch.float32, 0),
              ((128, 64, 64, 1), 4, torch.float32, 0),
              ((128, 32, 32, 1), 3, torch.float32, 0),
-             ((128, 16, 16, 1), 2, torch.float32, 0)]
+             ((128, 16, 16, 1), 2, torch.float32, 0),
+             ((32, 200, 200, 2), 4, torch.float32, 0),
+             ((32, 200, 200, 2), 3, torch.float32, 0),
+             ((32, 200, 200, 2), 2, torch.float32, 0),
+             ((32, 200, 200, 1), 4, torch.float32, 0),
+             ((32, 200, 200, 1), 3, torch.float32, 0),
+             ((32, 200, 200, 1), 2, torch.float32, 0)]
     max_err = 0.0
     for shape, n_levels, dtype, misalign in cases:
         x = rand(shape, dtype, misalign)
@@ -204,13 +227,51 @@ def phase_kernel(device) -> dict:
             raise AssertionError(f"multires_targets disagrees: {errs}")
         max_err = max(max_err, max(errs))
 
-    # timing: the PDE path's largest call, then the DDPM path's three and
-    # the VP path's three
+    # the WMH trainer's stage downsample: the pyramid's last level, within
+    # one ulp of the data's scale of the plain chain's mean, and exactly on
+    # a binary mask (its levels are multiples of 1/64)
+    from unet_design_tpu_torch.tasks import wmh
+    for shape, nd in (((32, 200, 200, 2), 3), ((32, 200, 200, 2), 2),
+                      ((32, 200, 200, 2), 1), ((32, 200, 200, 1), 3),
+                      ((32, 200, 200, 1), 2), ((32, 200, 200, 1), 1)):
+        x = rand(shape)
+        if shape[-1] == 1:
+            x = (x > 1.0).float()
+        route, down = wmh.stage_downsampler(shape[1:3], nd)
+        out, ref = down(x), wavelet.haar_downsample(x, nd)
+        err = float((out - ref).abs().max())
+        tol = 0.0 if shape[-1] == 1 else float(np.spacing(np.float32(
+            x.abs().max().item())))
+        log(f"[kernel] WMH stage downsample {shape} {nd} octave(s) "
+            f"({route}): max abs err vs the plain chain {err:.3g} (tol "
+            f"{tol:g})")
+        if route != "kernel" or err > tol:
+            raise AssertionError(f"WMH stage downsample {shape}: {err}")
+
+    # timing: the PDE path's largest call, then the DDPM path's three, the
+    # VP path's three and the WMH image's and mask's three
     main = time_pyramid(haar, rand((8, 128, 128, 3)), 4)
     for shape, n_levels in (((128, 32, 32, 3), 4), ((128, 16, 16, 3), 3),
                             ((128, 8, 8, 3), 2), ((128, 64, 64, 1), 4),
-                            ((128, 32, 32, 1), 3), ((128, 16, 16, 1), 2)):
+                            ((128, 32, 32, 1), 3), ((128, 16, 16, 1), 2),
+                            ((32, 200, 200, 2), 4), ((32, 200, 200, 2), 3),
+                            ((32, 200, 200, 2), 2), ((32, 200, 200, 1), 4),
+                            ((32, 200, 200, 1), 3), ((32, 200, 200, 1), 2)):
         time_pyramid(haar, rand(shape), n_levels)
+    # the WMH stage downsample needs only the last level: beside the
+    # pyramid, the one library call that computes just that level
+    from unet_design_tpu_torch.benchmark.probe import device_us
+    for shape in ((32, 200, 200, 2), (32, 200, 200, 1)):
+        x = rand(shape)
+
+        def pool8():
+            return F.avg_pool2d(x.permute(0, 3, 1, 2), 8)
+        n_bytes = (x.numel() + x.numel() // 64) * x.element_size()
+        log(f"[kernel] {shape} last level only, one F.avg_pool2d(8): per "
+            f"call {time_ms(pool8) * 1e3:.2f} us (CUDA events), device "
+            f"{device_us(pool8):.3f} us (torch.profiler); its bound "
+            f"{n_bytes / BYTES_PER_S * 1e6:.3f} us ({n_bytes} B); on "
+            f"{card_line()}")
     return dict(name="haar_pyramid", route="cuda",
                 source="unet_design_tpu_torch/csrc/haar_pyramid.cu",
                 replaces=TPU_KERNEL, launches=None, max_abs_err=max_err,
@@ -677,6 +738,138 @@ def phase_mnist() -> int:
     return launches
 
 
+WMH_EPOCHS = [1, 2, 1, 1]
+
+
+def _wmh_config(logdir: str, epoch: int):
+    """``configs/wmh.yaml``'s model and recipe, written out, with the
+    Multi-ResNet arm on (multi-res Dice loss, 4 stages, freezing), on
+    ``synthetic_wmh(320)``; the run stops after ``epoch`` and a later call
+    resumes it."""
+    from unet_design_tpu_torch.tasks import wmh
+    cfg = wmh.Config()
+    cfg.device = "cuda"
+    m = cfg.model
+    m.hidden_channels, m.activation, m.dwt_encoder = 16, "gelu", True
+    m.multi_res_loss = True
+    d = cfg.data
+    d.synthetic, d.synthetic_size, d.resolution = True, 320, 200
+    d.batch_size, d.augmentation = 32, "none"
+    t = cfg.train
+    t.num_epochs_list, t.lr, t.freeze_lower_res = list(WMH_EPOCHS), 1e-4, True
+    t.stop_after_epochs, t.resume = 1, epoch > 0
+    t.logdir = logdir
+    return cfg
+
+
+def phase_wmh() -> int:
+    from unet_design_tpu_torch.ops import haar
+    from unet_design_tpu_torch.tasks import wmh
+    from unet_design_tpu_torch.train import freezing
+    from unet_design_tpu_torch.train.checkpoint import CheckpointManager
+
+    logdir = os.path.join(HERE, "runs", "chip_smoke_wmh")
+    shutil.rmtree(logdir, ignore_errors=True)
+    n_epochs = sum(WMH_EPOCHS)
+    stage_ends = list(np.cumsum(WMH_EPOCHS) - 1)
+    per_epoch, sweeps, snapshots = [], [], []
+    wmh.downsample_routes.clear()
+    haar.launches = 0   # the WMH path starts here
+    for epoch in range(n_epochs):
+        before = haar.launches
+        best, sweep = wmh.train(_wmh_config(logdir, epoch))
+        per_epoch.append(haar.launches - before)
+        sweeps.append(sweep)
+        if epoch in stage_ends:
+            snapshots.append(CheckpointManager(os.path.join(
+                logdir, "ckpt_latest"), keep=2).restore(epoch)["model"])
+    launches = haar.launches  # the WMH path ends here
+
+    records = [json.loads(l) for l in open(os.path.join(logdir,
+                                                        "metrics.jsonl"))]
+    get = lambda k: [r[k] for r in records if k in r]
+    losses, vals = get("train/loss"), get("valid/loss")
+    log(f"[wmh] per-epoch train/loss {losses}, valid/loss {vals}, "
+        f"valid/best_dsc {get('valid/best_dsc')}, test/best_dsc "
+        f"{get('test/best_dsc')}")
+    log(f"[wmh] per-epoch seconds {get('train/epoch_seconds')}, steps/s "
+        f"{get('train/steps_per_sec')} (9 steps of batch 32, fp32, epochs "
+        f"{WMH_EPOCHS} of the stages at 25, 50, 100 and 200 px, each epoch "
+        f"the first of its call) on {card_line()}")
+    log(f"[wmh] haar_pyramid launches per epoch {per_epoch}; stage "
+        f"downsample routes {dict(wmh.downsample_routes)}")
+    figures = sorted(os.listdir(os.path.join(logdir, "figures")))
+    log(f"[wmh] overlays {figures}")
+    if len(losses) != n_epochs or len(vals) != n_epochs or not all(
+            np.isfinite(losses + vals + get("test/loss"))):
+        raise AssertionError(f"losses: {losses}, {vals}")
+    if per_epoch != [20] * (n_epochs - 1) + [0] or launches != 80:
+        raise AssertionError(f"expected 20 launches in each epoch of "
+                             f"stages 0-2 and none in stage 3, got "
+                             f"{per_epoch}")
+    if any(len(s) != 9 for s in sweeps) or len(figures) != n_epochs or \
+            not all(f.startswith("valid_overlay_") and f.endswith(".png")
+                    for f in figures):
+        raise AssertionError(f"sweeps {[len(s) for s in sweeps]}, "
+                             f"figures {figures}")
+
+    names = list(snapshots[0])
+    for stage in range(1, len(WMH_EPOCHS)):
+        labels = freezing.unetbase_g_labels(names, 4, stage + 1)
+        p0, p1 = snapshots[stage - 1], snapshots[stage]
+        frozen = [n for n, l in labels.items() if l == freezing.FROZEN]
+        moved = [n for n in frozen if not torch.equal(p0[n], p1[n])]
+        trained = [n for n, l in labels.items() if l == freezing.TRAIN
+                   and not torch.equal(p0[n], p1[n])]
+        log(f"[wmh] stage {stage}: {len(frozen)} frozen tensors unchanged, "
+            f"{len(trained)} trainable tensors updated")
+        if moved or not frozen or not trained:
+            raise AssertionError(f"stage {stage}: frozen tensors moved "
+                                 f"{moved[:5]}, trained {len(trained)}")
+
+    # the best parameters in the model on the card and on the CPU
+    cfg = _wmh_config(logdir, 0)
+    card = wmh.build_model(cfg)
+    card.load_state_dict(best)
+    card = card.cuda().eval()
+    cpu = wmh.build_model(cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in best.items()})
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 200, 200, 2)).astype(np.float32))
+    with torch.no_grad():
+        out = card(x.cuda(), n_levels_used=4)
+        ref = cpu(x, n_levels_used=4)
+    for a, b in zip(out, ref, strict=True):
+        err = float((a.cpu() - b).abs().max())
+        scale = float(b.abs().max())
+        log(f"[wmh] fp32 forward {tuple(a.shape)} card vs CPU: max abs err "
+            f"{err:.3g} (scale {scale:.3g}, tol 1e-4 relative)")
+        if not torch.isfinite(a).all() or err > 1e-4 * max(scale, 1e-6):
+            raise AssertionError(f"card forward disagrees with CPU: {err}")
+    shutil.rmtree(logdir, ignore_errors=True)
+    return launches
+
+
+def phase_wmh_loo() -> None:
+    from unet_design_tpu_torch.tasks import wmh_leave_one_out as loo
+    images, masks, ranges, spacings = loo.synthetic_patients(2, 1, 200)
+    for model in ("seg_unet", "legacy"):
+        cfg = loo.LOOConfig(model=model, hidden_channels=16, epochs=1,
+                            batch_size=32, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = loo.leave_one_out(cfg, images, masks, ranges, patients=[0],
+                                spacings=spacings)[0]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        log(f"[wmh-loo] {model}: patient 0 held out ({images.shape[0] - 48}"
+            f" training slices at 200x200, 1 epoch at batch 32, then its 48"
+            f" slices scored, spacing {spacings[0]} mm): {res}; "
+            f"{secs:.3f} s on {card_line()}")
+        if not all(np.isfinite(v) for v in res.values()):
+            raise AssertionError(f"{model}: challenge metrics {res}")
+
+
 def phase_forward(device) -> None:
     from unet_design_tpu_torch.models import registry
     from unet_design_tpu_torch.ops import blocks
@@ -717,10 +910,13 @@ def main() -> int:
     ddpm_launches = timed("ddpm", phase_ddpm)
     timed("forward", phase_forward, device)
     mnist_launches = timed("mnist", phase_mnist)
+    wmh_launches = timed("wmh", phase_wmh)
+    timed("wmh-loo", phase_wmh_loo)
     log(f"[launches] haar_pyramid per path: PDE staged training "
         f"{pde_launches}, DDPM staged training {ddpm_launches}, VP staged "
-        f"training {mnist_launches}")
-    record["launches"] = pde_launches + ddpm_launches + mnist_launches
+        f"training {mnist_launches}, WMH staged training {wmh_launches}")
+    record["launches"] = (pde_launches + ddpm_launches + mnist_launches
+                          + wmh_launches)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [record]}))
     print(card_line())

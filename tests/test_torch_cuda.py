@@ -1,5 +1,5 @@
 """The port's CUDA kernel against its plain version, and the diffusion
-slices' models and trainers, on the card.
+and WMH slices' models and trainers, on the card.
 
 Marked ``cuda``: each test skips where no CUDA device is present (the CPU
 tier-1 run).  On a machine with an H100 and ``nvcc``, run
@@ -52,6 +52,12 @@ def _x(shape, dtype, device, seed=0, misalign=0):
     ((128, 64, 64, 1), 4, torch.float32),  # diff_mnist, one channel
     ((128, 32, 32, 1), 3, torch.float32),
     ((128, 16, 16, 1), 2, torch.float32),
+    ((32, 200, 200, 2), 4, torch.float32),  # WMH image, stages 0, 1, 2
+    ((32, 200, 200, 2), 3, torch.float32),
+    ((32, 200, 200, 2), 2, torch.float32),
+    ((32, 200, 200, 1), 4, torch.float32),  # WMH mask, stages 0, 1, 2
+    ((32, 200, 200, 1), 3, torch.float32),
+    ((32, 200, 200, 1), 2, torch.float32),
 ])
 def test_kernel_matches_plain(cuda, shape, n_levels, dtype):
     _check_kernel(_x(shape, dtype, cuda), n_levels)
@@ -223,3 +229,58 @@ def test_full_width_diff_mnist_train_step(cuda, tmp_path):
         "train/res_8_loss", "train/res_16_loss", "train/res_32_loss",
         "train/res_64_loss"]
     assert all(np.isfinite(v) for k, v in rec.items() if k != "step")
+
+
+@pytest.mark.parametrize("shape,n_downsample", [
+    ((32, 200, 200, 2), 3),   # WMH image, stages 0, 1, 2 of 4
+    ((32, 200, 200, 2), 2),
+    ((32, 200, 200, 2), 1),
+    ((32, 200, 200, 1), 3),   # mask
+    ((32, 200, 200, 1), 2),
+    ((32, 200, 200, 1), 1)])
+def test_wmh_stage_downsample_through_kernel(cuda, shape, n_downsample):
+    """The WMH trainer's stage downsample: one launch, the plain chain's
+    values (a mean where the kernel adds in pairs: within one ulp of the
+    data's scale), exactly on a binary mask, and the same re-binarized
+    mask."""
+    from unet_design_tpu_torch.tasks import wmh
+    x = _x(shape, torch.float32, cuda, seed=2)
+    if shape[-1] == 1:
+        x = (x > 1.0).float()
+    route, down = wmh.stage_downsampler(shape[1:3], n_downsample)
+    assert route == "kernel"
+    before = haar.launches
+    out = down(x)
+    assert haar.launches == before + 1
+    ref = wavelet.haar_downsample(x, n_downsample)
+    tol = 0.0 if shape[-1] == 1 else float(np.spacing(np.float32(
+        x.abs().max().item())))
+    torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+    torch.testing.assert_close((out > 0.5).float(), (ref > 0.5).float(),
+                               rtol=0, atol=0)
+
+
+def test_wmh_train_on_the_card(cuda, tmp_path):
+    """A tiny staged WMH run on the card: [1, 1] epochs at 48x48, 10
+    training slices in batches of 4 (3 steps) and one validation batch;
+    stage 0 launches the kernel for the image and the mask of each (8),
+    stage 1 and the test none; finite losses, 9 thresholds."""
+    from unet_design_tpu_torch.tasks import wmh
+    cfg = wmh.Config()
+    cfg.data.synthetic_size = 12
+    cfg.data.resolution = 48
+    cfg.data.batch_size = 4
+    cfg.model.hidden_channels = 4
+    cfg.model.dwt_encoder = True
+    cfg.model.multi_res_loss = True
+    cfg.train.num_epochs_list = [1, 1]
+    cfg.train.freeze_lower_res = True
+    cfg.train.logdir = str(tmp_path)
+    before = haar.launches
+    best, sweep = wmh.train(cfg)
+    assert haar.launches == before + 8
+    assert len(sweep) == 9 and all(v.is_cuda for v in best.values())
+    recs = [json.loads(l) for l in open(tmp_path / "metrics.jsonl")]
+    losses = [r[k] for r in recs for k in ("train/loss", "valid/loss")
+              if k in r]
+    assert len(losses) == 4 and np.isfinite(losses).all()

@@ -27,13 +27,16 @@ with ``Conv_0..3`` -> ``q, k, v, proj_out``; the one ``Conv_0`` of a
 ``GroupNorm_0`` of an OpenAI attention block (``*attn``) or output head
 (``out_act_{i}``) -> ``norm``; an MLP's (``t_encoder``, ``x_encoder``, ``net``)
 ``Dense_k`` -> ``layers.k``.
+A model whose automatic names sit at the root scope, which has no name to
+key a rule on, declares its own root rule as ``FLAX_ROOT_PREFIXES``: the
+legacy WMH net maps ``Conv_k`` -> ``convs.k`` (``{"Conv_": "convs."}``).
 Input is the nested dict of arrays under flax's ``"params"``.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,7 +74,12 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
             yield prefix + (k,), np.asarray(v)
 
 
-def _torch_key(path: Tuple[str, ...]) -> str:
+def _torch_key(path: Tuple[str, ...],
+               root_prefixes: Optional[Mapping[str, str]] = None) -> str:
+    for old, new in (root_prefixes or {}).items():
+        if len(path) > 1 and path[0].startswith(old):
+            path = (new + path[0][len(old):],) + tuple(path[1:])
+            break
     out = []
     for i, seg in enumerate(path[:-1]):
         if (seg == "GroupNorm_0" and i > 0
@@ -93,9 +101,12 @@ def _torch_value(path: Tuple[str, ...], a: np.ndarray) -> np.ndarray:
     return np.transpose(a, (3, 2, 0, 1))
 
 
-def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax ``params`` tree -> ``{torch key: fp32 tensor}``."""
-    return {_torch_key(p): torch.from_numpy(
+def flax_to_state_dict(params: Mapping[str, Any],
+                       root_prefixes: Optional[Mapping[str, str]] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """Flax ``params`` tree -> ``{torch key: fp32 tensor}``;
+    ``root_prefixes`` is the target model's ``FLAX_ROOT_PREFIXES``."""
+    return {_torch_key(p, root_prefixes): torch.from_numpy(
                 np.array(_torch_value(p, a), dtype=np.float32, order="C"))
             for p, a in _flatten(params)}
 
@@ -104,5 +115,6 @@ def load_flax_params(model: nn.Module, params: Mapping[str, Any]
                      ) -> nn.Module:
     """Copy a flax ``params`` tree into ``model``; every parameter of the
     model must be covered and nothing else given (strict load)."""
-    model.load_state_dict(flax_to_state_dict(params), strict=True)
+    model.load_state_dict(flax_to_state_dict(
+        params, getattr(model, "FLAX_ROOT_PREFIXES", None)), strict=True)
     return model

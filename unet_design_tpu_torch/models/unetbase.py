@@ -2,14 +2,16 @@
 generalisation.
 
 Port of ``unet_design_tpu/models/unetbase.py`` (``Unetbase``,
-``_match_spatial``, ``UnetbaseGCore``, ``UnetbaseG``), itself a re-design
-of ``pdearena/modules/twod_unetbase.py``.  The G-variant carries the paper's
-ideas: the parameter-free DWT encoder, per-level heads (``image_proj_{j}``)
-and tails (``final_{j}``), multi-resolution outputs, ``n_levels_used``
-truncation for staged training, and ``n_extra_resnet_layers``.
+``_match_spatial``, ``UnetbaseGCore``, ``UnetbaseG``, ``WMHSegUnet``),
+itself a re-design of ``pdearena/modules/twod_unetbase.py``.  The G-variant
+carries the paper's ideas: the parameter-free DWT encoder, per-level heads
+(``image_proj_{j}``) and tails (``final_{j}``), multi-resolution outputs,
+``n_levels_used`` truncation for staged training, and
+``n_extra_resnet_layers``.
 
-Public I/O is the JAX package's: trajectories ``(B, T, H, W, C)``.  Inside,
-feature maps are NCHW stored channels_last (``common.to_nchw``).
+Public I/O is the JAX package's: trajectories ``(B, T, H, W, C)``, or NHWC
+images for ``WMHSegUnet``.  Inside, feature maps are NCHW stored
+channels_last (``common.to_nchw``).
 Submodules carry the flax modules' names, so ``models/convert.py`` and the
 staged-freezing rules (``train/freezing.py``) find each one by name.
 """
@@ -225,3 +227,39 @@ class UnetbaseG(nn.Module):
         if self.multi_res_loss:
             return [expand(o) for o in out]
         return expand(out)
+
+
+class WMHSegUnet(nn.Module):
+    """WMH segmentation U-Net: 2 MRI modalities -> 1 sigmoid mask channel
+    (``wmh/model.py:165-296``).  I/O: NHWC images ``(B, H, W, 2)`` ->
+    ``(B, H, W, 1)`` (a list, coarsest first, under ``multi_res_loss``).
+
+    Non-dyadic sizes such as the challenge's 200x200 run as in the JAX
+    model: the DWT encoder zero-pads (200 -> 100 -> 50 -> 25 -> 13), the
+    ``avg_pool`` encoder floors (25 -> 12), and the decoder crops or
+    replicate-pads each upsampled map to its skip (``_match_spatial``).
+    """
+
+    def __init__(self, hidden_channels: int = 16, activation: str = "gelu",
+                 dwt_encoder: bool = False,
+                 up_fct: str = "interpolate_nearest",
+                 n_extra_resnet_layers: int = 0,
+                 multi_res_loss: bool = False, sequ_mode: bool = False,
+                 no_skip_connection: bool = False, no_down_up: bool = False,
+                 n_levels: int = 4):
+        super().__init__()
+        self.n_levels = n_levels
+        self.multi_res_loss = multi_res_loss
+        self.core = UnetbaseGCore(
+            in_channels=2, out_channels=1, hidden_channels=hidden_channels,
+            activation=activation, dwt_encoder=dwt_encoder, up_fct=up_fct,
+            n_extra_resnet_layers=n_extra_resnet_layers,
+            multi_res_loss=multi_res_loss, sequ_mode=sequ_mode,
+            no_skip_connection=no_skip_connection, no_down_up=no_down_up,
+            sigmoid_out=True, n_levels=n_levels)
+
+    def forward(self, x: torch.Tensor, n_levels_used: Optional[int] = None):
+        out = self.core(common.to_nchw(x), n_levels_used=n_levels_used)
+        if self.multi_res_loss:
+            return [o.permute(0, 2, 3, 1) for o in out]
+        return out.permute(0, 2, 3, 1)

@@ -1,9 +1,9 @@
-"""PDE task losses and the multi-resolution sum.
+"""Task losses and the multi-resolution sum.
 
 Port of ``unet_design_tpu/process/losses.py`` (``CustomMSELoss`` /
-``ScaledLpLoss`` of ``pdearena/modules/loss.py:7-70``, the multi-res sum of
-``pdearena/models/pdemodel.py:222-229``).  Inputs are trajectories
-``(B, T, H, W, C)``.
+``ScaledLpLoss`` of ``pdearena/modules/loss.py:7-70`` on trajectories
+``(B, T, H, W, C)``, the WMH soft Dice of ``wmh/train_pt.py:102-112`` on any
+shape, the multi-res sum of ``pdearena/models/pdemodel.py:222-229``).
 """
 
 from __future__ import annotations
@@ -41,9 +41,26 @@ def custom_mse_loss(pred: torch.Tensor, target: torch.Tensor,
     return _reduce(reduced, reduction)
 
 
+def dice_coef(pred: torch.Tensor, target: torch.Tensor,
+              smooth: float = 1.0) -> torch.Tensor:
+    """Soft Dice coefficient over the whole flattened batch
+    (``wmh/train_pt.py:102-108``)."""
+    p = pred.reshape(-1)
+    t = target.reshape(-1)
+    intersection = (p * t).sum()
+    return (2.0 * intersection + smooth) / (p.sum() + t.sum() + smooth)
+
+
+def dice_coef_loss(pred: torch.Tensor, target: torch.Tensor,
+                   smooth: float = 1.0) -> torch.Tensor:
+    """``1 - dice`` (``wmh/train_pt.py:110-112``)."""
+    return 1.0 - dice_coef(pred, target, smooth)
+
+
 CRITERIA: dict = {
     "mse": custom_mse_loss,
     "scaledl2": scaledlp_loss,
+    "dice": dice_coef_loss,
 }
 
 

@@ -4,7 +4,8 @@ Port of ``unet_design_tpu/utils/logging.py`` (``get_logger``,
 ``MetricsLogger``): each ``log`` call appends one line
 ``{"step": ..., "t": ..., <metric>: <float>, ...}`` to
 ``<logdir>/metrics.jsonl``, the file the JAX trainer writes; each
-``log_figure`` call saves a PNG under ``<logdir>/figures``.
+``log_figure`` (a matplotlib figure) or ``log_image`` (an RGB array,
+written without matplotlib) call saves a PNG under ``<logdir>/figures``.
 """
 
 from __future__ import annotations
@@ -46,16 +47,25 @@ class MetricsLogger:
             self._file.write(json.dumps(record) + "\n")
             self._file.flush()
 
+    def _figure_path(self, name: str, step: int) -> str:
+        path = os.path.join(self.logdir, "figures")
+        os.makedirs(path, exist_ok=True)
+        return os.path.join(path, f"{name.replace('/', '_')}_{step}.png")
+
     def log_figure(self, name: str, fig, step: int) -> None:
         """Save a matplotlib figure as ``figures/<name>_<step>.png``
         (``/`` in the name becomes ``_``), then close it."""
         if self.logdir:
-            path = os.path.join(self.logdir, "figures")
-            os.makedirs(path, exist_ok=True)
-            fig.savefig(os.path.join(path, f"{name.replace('/', '_')}"
-                                           f"_{step}.png"))
+            fig.savefig(self._figure_path(name, step))
         import matplotlib.pyplot as plt
         plt.close(fig)
+
+    def log_image(self, name: str, rgb: np.ndarray, step: int) -> None:
+        """Save an ``(H, W, 3)`` array in [0, 1] as
+        ``figures/<name>_<step>.png``, without matplotlib."""
+        if self.logdir:
+            from unet_design_tpu_torch.utils.visualization import write_png
+            write_png(self._figure_path(name, step), rgb)
 
     def close(self) -> None:
         if self._file:

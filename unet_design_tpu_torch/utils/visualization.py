@@ -1,4 +1,5 @@
-"""Figures of the diffusion trainers: sample grids and U-Net norms vs t.
+"""Figures of the trainers: sample grids, U-Net norms vs t, and the WMH
+segmentation overlay.
 
 Port of ``plot_sample_grid`` and ``plot_unet_norms``
 (``unet_design_tpu/utils/visualization.py:20-41, 93-109``;
@@ -6,10 +7,21 @@ Port of ``plot_sample_grid`` and ``plot_unet_norms``
 is drawn, headless (Agg): the machine with the card has none, and a
 trainer asked for figures checks :func:`require_matplotlib` before its
 first step rather than skip them.
+
+The WMH overlay (``plot_segmentation``, ``:74-90``; ``wmh/plotting.py:83``)
+needs no matplotlib: :func:`segmentation_overlay` returns the pixels that
+the JAX figure draws, and ``MetricsLogger.log_image`` writes them as a PNG
+with :func:`write_png`, built on ``zlib`` and ``struct``.  So the WMH
+trainer draws its overlay on every machine.  The file has the JAX
+package's name (``figures/valid_overlay_<step>.png``) but not its frame:
+one image pixel per array element, with no axes and no resampling to a
+4-inch figure.
 """
 
 from __future__ import annotations
 
+import struct
+import zlib
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -82,3 +94,44 @@ def plot_unet_norms(norms: Dict[float, Dict[str, Dict[int, List[float]]]],
         ax.legend(fontsize=6)
     fig.tight_layout()
     return fig
+
+
+def segmentation_overlay(image: np.ndarray, mask: np.ndarray,
+                         pred: np.ndarray, threshold: float = 0.5
+                         ) -> np.ndarray:
+    """``(H, W, 3)`` float32 in [0, 1]: ``image`` min-max scaled to grey,
+    true positives green, false positives red, false negatives blue
+    (``pred >= threshold`` against ``mask >= 0.5``)."""
+    p = pred >= threshold
+    m = mask >= 0.5
+    base = np.asarray(image, np.float32)
+    base = (base - base.min()) / (np.ptp(base) + 1e-8)
+    rgb = np.stack([base] * 3, axis=-1)
+    rgb[np.logical_and(p, m)] = [0, 1, 0]      # TP
+    rgb[np.logical_and(p, ~m)] = [1, 0, 0]     # FP
+    rgb[np.logical_and(~p, m)] = [0, 0, 1]     # FN
+    return rgb
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """Write an ``(H, W, 3)`` array in [0, 1] as an 8-bit RGB PNG (values
+    clipped, then rounded to the nearest of 256 levels; every row with
+    filter 0)."""
+    px = np.round(np.clip(np.asarray(rgb, np.float64), 0.0, 1.0) * 255.0
+                  ).astype(np.uint8)
+    if px.ndim != 3 or px.shape[2] != 3:
+        raise ValueError(f"expected (H, W, 3), got {px.shape}")
+    h, w, _ = px.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           px.reshape(h, w * 3)], axis=1)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0,
+                                                0, 0)))
+        f.write(_png_chunk(b"IDAT", zlib.compress(rows.tobytes())))
+        f.write(_png_chunk(b"IEND", b""))
