@@ -26,8 +26,8 @@ prints no result line); each prints its seconds:
 4. train the CIFAR-10 DDPM flagship (``configs/diff_cifar_staged.yaml``'s
    ``MultiResUNet``: ch 128, bf16, DWT encoder, multi-res loss, freezing,
    EMA, clip, warmup; batch 128 of 512 synthetic CIFAR-shaped images)
-   through four stages of 8 steps, stopping and resuming at every stage
-   boundary; check finite losses, 0, 8, 8, 8 kernel launches, frozen
+   through four stages of 4 steps, stopping and resuming at every stage
+   boundary; check finite losses, 0, 4, 4, 4 kernel launches, frozen
    parameters and their EMA unchanged, trainable ones (the kept-trainable
    upsample among them) moved; sample from the EMA parameters with DDPM
    (T = 1000), DDIM (50 steps) and DPM-Solver (20 steps), timed; and the
@@ -57,7 +57,23 @@ prints no result line); each prints its seconds:
    protocol on synthetic patients in the challenge layout (48, 48 and 83
    slices at 200x200), patient 0 held out, one epoch at batch 32, with
    ``seg_unet`` (hidden 16) and the legacy 64-512 net: finite challenge
-   metrics, timed.
+   metrics, timed;
+8. the rest of the PDE model zoo through the normal entry points: write a
+   synthetic shallow-water set in the ``ShallowWaterOpener`` npz schema
+   (88 frames of 96x192, 4 training, 2 validation and 2 test
+   trajectories), train ``configs/pde_shallowwater2d_1day.yaml`` with
+   ``tasks.pde.main`` (``Unetmod-64`` at hidden 64, batch 16, AdamW with
+   warmup-cosine; the data path, the epoch list, the trajectory limit and
+   the logdir overridden, and the stop / resume flags) for two epochs,
+   stopped after the first and resumed, and score its best checkpoint on
+   the test split with ``tasks.eval_pde``; train ``U-FNet2-16m`` and
+   ``FNO-128-8m`` at the Navier-Stokes shapes (synthetic, 128x128,
+   time_history 4, batch 8; 8 trajectories) for 3 steps each and score
+   their latest checkpoints; check finite losses and scores, the JAX
+   registry's parameter counts, each trained model's fp32 forward on the
+   card against the CPU, the two ``SpectralConv2d`` routes against each
+   other at FNO-128-8m's (8, 137, 137, 128), and no Haar launch on this
+   path.
 
 Kernel launches are counted on each training path alone (the count is set
 to 0 just before it and read just after) and printed per path; the
@@ -101,17 +117,8 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    from unet_design_tpu_torch.benchmark.probe import event_ms
+    return event_ms(fn, iters, warmup)
 
 
 def phase_build():
@@ -352,7 +359,7 @@ def _slice_config(logdir: str):
     cfg.data.n_scalar_components = 1
     cfg.data.n_vector_components = 1
     cfg.data.batch_size = 8
-    cfg.data.n_synthetic = 32
+    cfg.data.n_synthetic = 16
     cfg.data.train_cycles = 1
     cfg.train.num_epochs_list = [1, 1, 1, 1]
     cfg.train.freeze_lower_res = True
@@ -373,7 +380,7 @@ def phase_slice() -> int:
     logdir = os.path.join(HERE, "runs", "chip_smoke")
     shutil.rmtree(logdir, ignore_errors=True)
     n_stages = 4
-    steps_per_stage = 32 // 8
+    steps_per_stage = 16 // 8
     snapshots = []
     per_stage = []
     state = None
@@ -449,7 +456,7 @@ def phase_slice() -> int:
     return launches
 
 
-DDPM_STEPS = 8          # per stage, 4 stages
+DDPM_STEPS = 4          # per stage, 4 stages
 SAMPLE_BATCH = 16
 
 
@@ -870,6 +877,183 @@ def phase_wmh_loo() -> None:
             raise AssertionError(f"{model}: challenge metrics {res}")
 
 
+SW_YAML = os.path.join(HERE, "configs", "pde_shallowwater2d_1day.yaml")
+# parameters of the JAX registry's models at these field counts (1 scalar
+# and 1 vector field; time_history 2 for shallow water, 4 for Navier-Stokes),
+# held against the JAX package by tests/test_torch_pde_zoo.py
+ZOO_PARAMS = {("Unetmod-64", 2): 144260227, ("U-FNet2-16m", 4): 175131139,
+              ("FNO-128-8m", 4): 33721603}
+SW_SPLITS = {"train": 4, "valid": 2, "test": 2}
+
+
+def _write_shallow_water(root: str, seed: int = 0) -> None:
+    """Trajectories in the ``ShallowWaterOpener`` npz schema at the
+    solver's save cadence (``u`` (88, 96, 192, 1) vorticity, ``v`` (88, 96,
+    192, 2) wind; the yaml's opener keeps frames ``[4::4]``), drifting
+    smooth random fields made with numpy, and their ``normstats.npz``."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(root)
+    y, x = np.meshgrid(np.linspace(0, 2 * np.pi, 96, endpoint=False),
+                       np.linspace(0, 4 * np.pi, 192, endpoint=False),
+                       indexing="ij")
+    t = np.arange(88, dtype=np.float32)[:, None, None, None] / 88
+    for split, n in SW_SPLITS.items():
+        for i in range(n):
+            k = rng.integers(1, 4, size=(3, 2))
+            phase = rng.uniform(0, 2 * np.pi, size=3)
+            base = np.stack([np.sin(a * y + b * x + p) for (a, b), p in
+                             zip(k, phase)], axis=-1)[None].astype(np.float32)
+            noise = 0.1 * rng.standard_normal((88, 96, 192, 3)).astype(
+                np.float32)
+            f = np.cos(2 * np.pi * t) * base + noise
+            np.savez(os.path.join(root, f"{split}_{i}.npz"),
+                     u=3e-5 * f[..., :1] + 1e-5, v=10.0 * f[..., 1:])
+    np.savez(os.path.join(root, "normstats.npz"), vor_mean=np.float32(1e-5),
+             vor_std=np.float32(3e-5))
+
+
+def _records(logdir: str) -> list:
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        return [json.loads(l) for l in f]
+
+
+def _zoo_card_vs_cpu(tag: str, model: torch.nn.Module, cfg,
+                     shape: tuple) -> None:
+    """The trained model's fp32 forward on the card within 1e-4 relative of
+    the same weights on the CPU."""
+    from unet_design_tpu_torch.tasks import pde
+    cpu = pde.build_model(cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        shape).astype(np.float32))
+    model.eval()
+    cpu.eval()
+    with torch.no_grad():
+        out = model(x.cuda()).cpu()
+        ref = cpu(x)
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    log(f"[zoo] {tag} fp32 forward {tuple(out.shape)} card vs CPU: max abs "
+        f"err {err:.3g} (scale {scale:.3g}, tol 1e-4 relative)")
+    if not torch.isfinite(out).all() or err > 1e-4 * max(scale, 1e-6):
+        raise AssertionError(f"{tag}: card forward disagrees with CPU: {err}")
+
+
+def _check_run(tag: str, logdir: str, n_epochs: int) -> None:
+    records = _records(logdir)
+    get = lambda k: [r[k] for r in records if k in r]
+    losses = get("train/loss_mean")
+    vals = [v for r in records for k, v in r.items() if k.startswith("valid/")]
+    log(f"[zoo] {tag}: per-epoch train/loss_mean {losses}, steps/s "
+        f"{get('train/steps_per_sec')}, valid/unrolled_loss_mean "
+        f"{get('valid/unrolled_loss_mean')} on {card_line()}")
+    if len(losses) != n_epochs or not all(np.isfinite(losses + vals)):
+        raise AssertionError(f"{tag}: losses {losses}, validation {vals}")
+
+
+def _check_scores(tag: str, scores: dict, split: str) -> None:
+    keys = {f"{split}/loss/mse", f"{split}/loss/scaledl2",
+            f"{split}/unrolled_loss_mean", f"{split}/unrolled_loss_std",
+            "checkpoint_step"}
+    if set(scores) != keys or not all(np.isfinite(v)
+                                      for v in scores.values()):
+        raise AssertionError(f"{tag} scores: {scores}")
+
+
+def phase_zoo() -> None:
+    """Phase 8: the modern U-Net and spectral models through the normal
+    entry points (see the module's docstring)."""
+    from unet_design_tpu_torch.models import common, registry
+    from unet_design_tpu_torch.ops import haar, spectral
+    from unet_design_tpu_torch.tasks import eval_pde, pde
+    from unet_design_tpu_torch.utils.config import parse_cli
+
+    base = os.path.join(HERE, "runs", "chip_smoke_zoo")
+    shutil.rmtree(base, ignore_errors=True)
+    data = os.path.join(base, "sw")
+    t0 = time.perf_counter()
+    _write_shallow_water(data)
+    log(f"[zoo] shallow-water set {SW_SPLITS} x (88, 96, 192, 1 + 2) "
+        f"written in {time.perf_counter() - t0:.1f} s")
+    haar.launches = 0   # the zoo path starts here
+
+    # (a) the shallow-water yaml end to end: two epochs, stopped after the
+    # first and resumed, then the best checkpoint scored on the test split
+    logdir = os.path.join(base, "sw_run")
+    args = ["--config", SW_YAML, f"data.data_path={data}",
+            "train.num_epochs_list=[2]",
+            f"data.limit_trajectories={SW_SPLITS['train']}",
+            f"train.logdir={logdir}"]
+    t0 = time.perf_counter()
+    for extra in (["train.stop_after_epochs=1"], ["train.resume=true"]):
+        pde.main(args + extra)
+    _check_run("Unetmod-64, shallow water 96x192, batch 16", logdir, 2)
+    cfg = parse_cli(pde.Config, args)
+    scores = eval_pde.main(args + ["--ckpt", "best", "--split", "test"])
+    _check_scores("Unetmod-64 test split", scores, "test")
+    log(f"[zoo] Unetmod-64: two epochs in two calls and the test split "
+        f"scored in {time.perf_counter() - t0:.1f} s")
+    model = pde.build_model(cfg)
+    from unet_design_tpu_torch.train.checkpoint import CheckpointManager
+    model.load_state_dict(CheckpointManager(os.path.join(
+        logdir, "ckpt")).restore()["model"])
+    checked = [(("Unetmod-64", 2), model)]
+    _zoo_card_vs_cpu("Unetmod-64", model.cuda(), cfg, (1, 2, 48, 96, 3))
+
+    # (b) the spectral models at the Navier-Stokes shapes, a few steps each,
+    # scored from their latest checkpoints
+    for name in ("U-FNet2-16m", "FNO-128-8m"):
+        cfg = _slice_config(os.path.join(base, name))
+        cfg.model.name = name
+        # the trainer passes model.hidden_channels to every registry name
+        cfg.model.hidden_channels = registry.MODEL_REGISTRY[name][
+            "init_args"]["hidden_channels"]
+        cfg.model.dwt_encoder = cfg.model.multi_res_loss = False
+        cfg.data.n_synthetic = 8          # 3 windows each: 3 steps
+        cfg.data.train_cycles = 3
+        cfg.train.num_epochs_list = [1]
+        cfg.train.val_every_epochs = 2    # the scorer validates instead
+        cfg.train.freeze_lower_res = False
+        cfg.train.stop_after_epochs = 0
+        t0 = time.perf_counter()
+        state = pde.train(cfg)
+        _check_run(f"{name}, synthetic 128x128, batch 8", cfg.train.logdir,
+                   1)
+        scores = eval_pde.evaluate(cfg, "latest", "test")
+        _check_scores(f"{name} latest", scores, "test")
+        log(f"[zoo] {name}: trained and scored in "
+            f"{time.perf_counter() - t0:.1f} s")
+        checked.append(((name, 4), state.model))
+        _zoo_card_vs_cpu(name, state.model, cfg, (1, 4, 64, 64, 3))
+    launches = haar.launches  # the zoo path ends here
+
+    for key, m in checked:
+        n = common.param_count(m)
+        log(f"[zoo] {key[0]} (time_history {key[1]}, 3 fields): {n} "
+            f"parameters (JAX registry: {ZOO_PARAMS[key]})")
+        if n != ZOO_PARAMS[key]:
+            raise AssertionError(f"{key}: {n} parameters")
+    log(f"[zoo] haar_pyramid launches on the zoo path: {launches}")
+    if launches != 0:
+        raise AssertionError("the zoo's models have no multi-res targets")
+
+    # both spectral routes at FNO-128-8m's shape, where both apply
+    conv = spectral.SpectralConv2d(128, 128, 8, 8)
+    conv.reset_parameters(torch.Generator().manual_seed(0))
+    conv = conv.cuda()
+    x = torch.randn((8, 128, 137, 137), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    with torch.no_grad():
+        dft, fft = conv(x, route="dft"), conv(x, route="fft")
+    err, scale = float((dft - fft).abs().max()), float(fft.abs().max())
+    log(f"[zoo] SpectralConv2d (8, 137, 137, 128) m 8 on the card: DFT "
+        f"products vs cuFFT max abs err {err:.3g} (scale {scale:.3g}, tol "
+        f"1e-5 relative)")
+    if not torch.isfinite(dft).all() or err > 1e-5 * scale:
+        raise AssertionError(f"spectral routes disagree: {err}")
+    shutil.rmtree(base, ignore_errors=True)
+
+
 def phase_forward(device) -> None:
     from unet_design_tpu_torch.models import registry
     from unet_design_tpu_torch.ops import blocks
@@ -912,6 +1096,7 @@ def main() -> int:
     mnist_launches = timed("mnist", phase_mnist)
     wmh_launches = timed("wmh", phase_wmh)
     timed("wmh-loo", phase_wmh_loo)
+    timed("zoo", phase_zoo)
     log(f"[launches] haar_pyramid per path: PDE staged training "
         f"{pde_launches}, DDPM staged training {ddpm_launches}, VP staged "
         f"training {mnist_launches}, WMH staged training {wmh_launches}")

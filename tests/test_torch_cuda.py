@@ -1,5 +1,5 @@
-"""The port's CUDA kernel against its plain version, and the diffusion
-and WMH slices' models and trainers, on the card.
+"""The port's CUDA kernel against its plain version, and the diffusion,
+WMH and PDE-zoo slices' models, layers and trainers, on the card.
 
 Marked ``cuda``: each test skips where no CUDA device is present (the CPU
 tier-1 run).  On a machine with an H100 and ``nvcc``, run
@@ -284,3 +284,77 @@ def test_wmh_train_on_the_card(cuda, tmp_path):
     losses = [r[k] for r in recs for k in ("train/loss", "valid/loss")
               if k in r]
     assert len(losses) == 4 and np.isfinite(losses).all()
+
+
+@pytest.mark.parametrize("name", ["Unetmod-64", "U-FNet2-16m", "FNO-128-8m"])
+def test_zoo_forward_matches_cpu(cuda, name):
+    """A full-width zoo model's fp32 forward on the card (TF32 off) within
+    1e-4 relative of the same weights on the CPU."""
+    from unet_design_tpu_torch.models import registry
+    from unet_design_tpu_torch.tasks import pde
+    pde.resolve_device("cuda")
+    m = registry.build_model(name, 1, 1, 4, 1)
+    blocks.flax_default_init_(m, torch.Generator().manual_seed(0))
+    m.eval()
+    x = _x((1, 4, 128, 128, 3), torch.float32, "cpu", seed=3)
+    with torch.no_grad():
+        ref = m(x)
+        out = m.to(cuda)(x.to(cuda)).cpu()
+    assert torch.isfinite(out).all()
+    scale = float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("shape,modes", [((8, 137, 137, 128), (8, 8)),
+                                         ((8, 128, 128, 64), (16, 16)),
+                                         ((2, 24, 40, 5), (4, 6))])
+def test_spectral_routes_agree_on_the_card(cuda, shape, modes):
+    """The truncated-DFT products and cuFFT give the same layer, forward
+    and gradients, at 1e-5 of the output's scale."""
+    from unet_design_tpu_torch.ops.spectral import SpectralConv2d
+    from unet_design_tpu_torch.tasks import pde
+    pde.resolve_device("cuda")
+    b, h, w, c = shape
+    conv = SpectralConv2d(c, c, *modes)
+    conv.reset_parameters(torch.Generator().manual_seed(0))
+    conv.to(cuda)
+    x = _x((b, c, h, w), torch.float32, cuda, seed=4).requires_grad_(True)
+    outs, grads = [], []
+    for route in ("dft", "fft"):
+        y = conv(x, route=route)
+        (gx,) = torch.autograd.grad(y.square().sum(), x)
+        outs.append(y.detach())
+        grads.append(gx)
+    scale = float(outs[1].abs().max())
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-5 * scale
+    gscale = float(grads[1].abs().max())
+    assert float((grads[0] - grads[1]).abs().max()) <= 1e-4 * gscale
+
+
+def test_unetmod_train_step_at_shallow_water_shape(cuda):
+    """One AdamW step of the shallow-water yaml's ``Unetmod-64`` at full
+    width, 96x192, batch 16 (time_history 2): a finite loss, the
+    parameters updated, no Haar launch."""
+    from unet_design_tpu_torch.process import losses
+    from unet_design_tpu_torch.tasks import pde
+    from unet_design_tpu_torch.train import trainer
+    pde.resolve_device("cuda")
+    cfg = pde.Config()
+    cfg.model.name = "Unetmod-64"
+    cfg.data.time_history = 2
+    m = pde.build_model(cfg)
+    blocks.flax_default_init_(m, torch.Generator().manual_seed(0))
+    m.to(cuda)
+    before = {k: v.clone() for k, v in m.state_dict().items()}
+    opt = trainer.make_optimizer(m.parameters(), 1e-3, "adamw", 0.01)
+    x = _x((16, 2, 96, 192, 3), torch.float32, cuda, seed=5)
+    y = _x((16, 1, 96, 192, 3), torch.float32, cuda, seed=6)
+    launches = haar.launches
+    loss = losses.custom_mse_loss(m(x), y)
+    loss.backward()
+    opt.step()
+    assert np.isfinite(float(loss)) and haar.launches == launches
+    moved = [k for k, v in m.state_dict().items()
+             if not torch.equal(before[k], v)]
+    assert "image_proj.weight" in moved and "final.weight" in moved
+    assert len(moved) >= 0.9 * len(before)

@@ -188,8 +188,11 @@ def test_registry(name):
 
 
 def test_registry_rejects_unported_names():
-    with pytest.raises(KeyError):
-        registry.build_model("FNO-128-8m", 1, 1, 4, 1)
+    # FNO-128-8m, the name this test first used, is ported now;
+    # UNO-* and Unet2015-* are not yet
+    for name in ("UNO-64", "Unet2015-64"):
+        with pytest.raises(KeyError):
+            registry.build_model(name, 1, 1, 4, 1)
 
 
 def test_time_collapse_roundtrip():

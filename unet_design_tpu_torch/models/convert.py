@@ -18,18 +18,23 @@ Flax's automatic submodule names map onto the port's attribute names:
 ``GroupNorm_0`` of the fp32 wrapper folds away), ``Dense_0/1`` ->
 ``dense1/2``, ``ConvBlock_0`` -> ``block``, ``ConvTranspose_0`` ->
 ``tconv``; named modules (``core``, ``image_proj_0``, ``up_1_chconv``,
-``final_3``, ``temb_proj``, ``emb_proj``, ``qkv``, ``out_reduce_2``, ...)
-keep their names.  Where the same automatic names mean other layers, the
+``final_3``, ``temb_proj``, ``emb_proj``, ``qkv``, ``out_reduce_2``,
+``fourier1``, ``weights1``, ...) keep their names; spectral weights keep
+their ``(C_in, C_out, m1, m2, 2)`` layout.  Where the same automatic names mean other layers, the
 module they sit in decides (``_SCOPED``): ``DDPMAttnBlock_0`` -> ``attn``
 with ``Conv_0..3`` -> ``q, k, v, proj_out``; the one ``Conv_0`` of a
 ``down_{l}_downsample`` / ``up_{l}_upsample`` -> ``conv``; a ``tail_{l}``'s
 ``GroupNorm_0`` / ``Conv_0`` -> ``norm`` / ``conv``; the one
 ``GroupNorm_0`` of an OpenAI attention block (``*attn``) or output head
-(``out_act_{i}``) -> ``norm``; an MLP's (``t_encoder``, ``x_encoder``, ``net``)
-``Dense_k`` -> ``layers.k``.
+(``out_act_{i}``) -> ``norm`` (other names there map by the general rules:
+a modern ``AttentionBlock``'s ``Dense_0/1`` -> ``dense1/2``); an MLP's
+(``t_encoder``, ``x_encoder``, ``net``) ``Dense_k`` -> ``layers.k``; a
+PDE ResNet block's (``block_{i}``) ``GroupNorm_k`` -> ``norms.k``.
 A model whose automatic names sit at the root scope, which has no name to
 key a rule on, declares its own root rule as ``FLAX_ROOT_PREFIXES``: the
-legacy WMH net maps ``Conv_k`` -> ``convs.k`` (``{"Conv_": "convs."}``).
+legacy WMH net maps ``Conv_k`` -> ``convs.k`` (``{"Conv_": "convs."}``), the
+modern U-Net its head's ``GroupNorm_0`` -> ``head_norm``, a PDE ResNet block
+loaded alone its ``GroupNorm_k`` -> ``norms.k``.
 Input is the nested dict of arrays under flax's ``"params"``.
 """
 
@@ -54,15 +59,18 @@ _SCOPED = [
     (re.compile(r"tail_\d+"), {"GroupNorm_0": "norm", "Conv_0": "conv"}),
     (re.compile(r"(.+_)?attn|out_act_\d+"), {"GroupNorm_0": "norm"}),
 ]
-_MLP = re.compile(r"t_encoder|x_encoder|net")
+# automatic names kept as list indices: (parent, flax prefix, torch prefix)
+_INDEXED = [(re.compile(r"t_encoder|x_encoder|net"), "Dense_", "layers."),
+            (re.compile(r"block_\d+"), "GroupNorm_", "norms.")]
 
 
 def _rename(parent: str, seg: str) -> str:
-    if _MLP.fullmatch(parent) and seg.startswith("Dense_"):
-        return "layers." + seg[len("Dense_"):]
+    for pattern, old, new in _INDEXED:
+        if pattern.fullmatch(parent) and seg.startswith(old):
+            return new + seg[len(old):]
     for pattern, names in _SCOPED:
         if pattern.fullmatch(parent):
-            return names.get(seg, seg)
+            return names.get(seg, _RENAME.get(seg, seg))
     return _RENAME.get(seg, seg)
 
 
@@ -76,6 +84,7 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
 
 def _torch_key(path: Tuple[str, ...],
                root_prefixes: Optional[Mapping[str, str]] = None) -> str:
+    flax_path = path
     for old, new in (root_prefixes or {}).items():
         if len(path) > 1 and path[0].startswith(old):
             path = (new + path[0][len(old):],) + tuple(path[1:])
@@ -83,7 +92,7 @@ def _torch_key(path: Tuple[str, ...],
     out = []
     for i, seg in enumerate(path[:-1]):
         if (seg == "GroupNorm_0" and i > 0
-                and path[i - 1].startswith("GroupNorm_")):
+                and flax_path[i - 1].startswith("GroupNorm_")):
             continue  # flax nn.GroupNorm inside the fp32 wrapper
         out.append(_rename(path[i - 1] if i else "", seg))
     leaf = path[-1]

@@ -5,9 +5,11 @@ Port of two subsets of ``unet_design_tpu/ops/blocks.py``:
 - pdearena base: activations, fp32-statistics GroupNorm, ``ConvBlock`` /
   ``PartialResnetConvBlock`` / ``FullResnetConvBlock``
   (``pdearena/modules/twod_unetbase.py:12-162``), nearest upsampling and
-  the k2s2 transposed-conv upsample.  Fresh parameters follow flax's
+  the k2s2 / k4s2 transposed-conv upsample.  Fresh parameters follow flax's
   defaults (:func:`flax_default_init_`): LeCun-normal kernels, zero
   biases, unit GroupNorm scales.
+- pdearena modern: the pre-norm ``ResidualBlock`` and the multi-head
+  ``AttentionBlock`` (``pdearena/modules/twod_unet.py:16-181``).
 - diff_cifar DDPM: ``TimeEmbedding``, ``DDPMAttnBlock``, ``DDPMResBlock``,
   ``Downsample``, ``Upsample`` (``diff_cifar/model.py:9-169``), with their
   Xavier-uniform init and its per-layer gain (:func:`ddpm_init_`).
@@ -40,6 +42,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from unet_design_tpu_torch.ops.embeddings import ddpm_time_embedding
+from unet_design_tpu_torch.ops.spectral import SpectralConv2d
 
 ACTIVATIONS: dict = {
     "relu": F.relu,
@@ -59,21 +62,29 @@ def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
 
 class GroupNorm(nn.GroupNorm):
     """GroupNorm with fp32 statistics whatever the activation dtype
-    (eps 1e-5, flax's default)."""
+    (eps 1e-5, flax's default).
+
+    On the CPU it computes in float64: in one thread, PyTorch's fp32 CPU
+    kernel let a 7-layer GroupNorm(1) net's gradients (groups of 8 x 41 x
+    41) drift 1.2e-4 from a float64 reference, where XLA's stayed at
+    1.3e-5; in float64 they stay at 1.3e-5 too."""
 
     def __init__(self, num_groups: int, num_channels: int,
                  eps: float = 1e-5):
         super().__init__(num_groups, num_channels, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x.float()
-        if h.device.type == "cpu" and not h.requires_grad:
+        if x.device.type != "cpu":
+            return F.group_norm(x.float(), self.num_groups, self.weight,
+                                self.bias, self.eps).to(x.dtype)
+        h = x.double()
+        if not h.requires_grad:
             # PyTorch's CPU group_norm backward crashes (segfault) on a
             # channels_last input that needs no gradient, as the DDPM
             # model's first block gets; an NCHW copy avoids it
             h = h.contiguous()
-        return F.group_norm(h, self.num_groups, self.weight, self.bias,
-                            self.eps).to(x.dtype)
+        return F.group_norm(h, self.num_groups, self.weight.double(),
+                            self.bias.double(), self.eps).to(x.dtype)
 
 
 def conv3x3(in_channels: int, out_channels: int) -> nn.Conv2d:
@@ -132,19 +143,85 @@ def nearest_upsample(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
 
 
 class ConvTransposeUpsample(nn.Module):
-    """Transposed-conv x2 upsample (pdearena ``Up``; the JAX block's
-    ``kernel=4`` variant waits for its slice): flax
-    ``ConvTranspose(k, (2, 2), strides=2, 'SAME')`` is torch's
-    ``ConvTranspose2d(kernel_size=2, stride=2)`` with the kernel flipped in
-    space (see :mod:`unet_design_tpu_torch.models.convert`)."""
+    """Transposed-conv x2 upsample (pdearena ``Up`` with ``kernel=2``, the
+    modern U-Net's ``Upsample`` with ``kernel=4``).  Flax's
+    ``ConvTranspose(k, (k, k), strides=2, 'SAME')`` pads the dilated input
+    by ``k - 1`` (k2) or 2 (k4) on each side, which is torch's
+    ``ConvTranspose2d(k, stride=2, padding=k // 2 - 1)`` with the kernel
+    flipped in space (see :mod:`unet_design_tpu_torch.models.convert`)."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, kernel: int = 2):
         super().__init__()
-        self.tconv = nn.ConvTranspose2d(in_channels, out_channels, 2,
-                                        stride=2)
+        if kernel not in (2, 4):
+            raise NotImplementedError(f"kernel {kernel}")
+        self.tconv = nn.ConvTranspose2d(in_channels, out_channels, kernel,
+                                        stride=2, padding=kernel // 2 - 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.tconv(x)
+
+
+# ----------------------------------------------------------------------------
+# pdearena modern blocks
+# ----------------------------------------------------------------------------
+
+class ResidualBlock(nn.Module):
+    """Wide residual block, pre-norm (``twod_unet.py:16-61``):
+    ``[norm1] act conv1 [norm2] act conv2``, plus the input, or its 1x1
+    ``shortcut`` conv when the width changes."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 activation: str = "gelu", norm: bool = False,
+                 n_groups: int = 1):
+        super().__init__()
+        self.act = get_activation(activation)
+        self.norm1 = GroupNorm(n_groups, in_channels) if norm else None
+        self.conv1 = conv3x3(in_channels, out_channels)
+        self.norm2 = GroupNorm(n_groups, out_channels) if norm else None
+        self.conv2 = conv3x3(out_channels, out_channels)
+        self.shortcut = (nn.Conv2d(in_channels, out_channels, 1)
+                         if in_channels != out_channels else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x if self.norm1 is None else self.norm1(x)
+        h = self.conv1(self.act(h))
+        h = h if self.norm2 is None else self.norm2(h)
+        h = self.conv2(self.act(h))
+        return h + (x if self.shortcut is None else self.shortcut(x))
+
+
+class AttentionBlock(nn.Module):
+    """Multi-head spatial self-attention (``twod_unet.py:126-181``): a
+    fused ``dense1`` to q, k, v per head, the explicit products scaled by
+    ``d_k^-1/2``, the softmax in fp32 (cast back), ``dense2`` and the
+    residual.  ``softmax_axis='keys'`` is standard attention;
+    ``'queries'`` normalises over the queries as the reference's
+    ``softmax(dim=1)`` does, which ``scaled_dot_product_attention`` cannot
+    express.  ``x`` NCHW."""
+
+    def __init__(self, channels: int, n_heads: int = 1,
+                 d_k: Optional[int] = None, softmax_axis: str = "keys"):
+        super().__init__()
+        if softmax_axis not in ("keys", "queries"):
+            raise ValueError(f"softmax_axis {softmax_axis!r}")
+        self.n_heads = n_heads
+        self.d_k = d_k or channels
+        self.softmax_dim = 2 if softmax_axis == "keys" else 1
+        self.dense1 = nn.Linear(channels, n_heads * self.d_k * 3)
+        self.dense2 = nn.Linear(n_heads * self.d_k, channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, hh, ww = x.shape
+        nh, dk, n = self.n_heads, self.d_k, hh * ww
+        seq = x.flatten(2).transpose(1, 2)                       # (b, n, c)
+        # (b, n, heads, 3 dk) -> three (b * heads, n, dk)
+        qkv = self.dense1(seq).view(b, n, nh, 3 * dk).transpose(1, 2)
+        q, k, v = (z.reshape(b * nh, n, dk) for z in qkv.chunk(3, dim=-1))
+        attn = torch.bmm(q, k.transpose(1, 2)) * dk ** -0.5    # (., i, j)
+        attn = torch.softmax(attn.float(), dim=self.softmax_dim).to(x.dtype)
+        res = torch.bmm(attn, v).view(b, nh, n, dk).transpose(1, 2)
+        res = self.dense2(res.reshape(b, n, nh * dk)) + seq
+        return res.transpose(1, 2).reshape(b, c, hh, ww)
 
 
 # ----------------------------------------------------------------------------
@@ -423,8 +500,11 @@ def flax_default_init_(module: nn.Module,
     """Re-initialise ``module`` the way flax initialises its counterpart:
     conv and dense kernels LeCun-normal (variance ``1/fan_in``, truncated at
     two standard deviations) or zero where the layer's ``zero_init`` says
-    so, biases zero, GroupNorm scales one."""
+    so, biases zero, GroupNorm scales one, spectral weights uniform in
+    ``[0, 1 / (C_in C_out))``."""
     for m in module.modules():
+        if isinstance(m, SpectralConv2d):
+            m.reset_parameters(generator)
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             w = m.weight
             # fan_in: input channels x kernel area (ConvTranspose2d keeps its
