@@ -27,11 +27,21 @@ prints no result line); each prints its seconds:
    ``MultiResUNet``: ch 128, bf16, DWT encoder, multi-res loss, freezing,
    EMA, clip, warmup; batch 128 of 512 synthetic CIFAR-shaped images)
    through four stages of 4 steps, stopping and resuming at every stage
-   boundary; check finite losses, 0, 4, 4, 4 kernel launches, frozen
-   parameters and their EMA unchanged, trainable ones (the kept-trainable
-   upsample among them) moved; sample from the EMA parameters with DDPM
-   (T = 1000), DDIM (50 steps) and DPM-Solver (20 steps), timed; and the
-   trained model's fp32 forward on the card against the CPU;
+   boundary, with ``train.eval_step`` 12: the EMA scored once, at the
+   first step of stage 3, on 256 DPM-Solver-20 samples against a stats
+   cache that ``tasks.compute_fid_stats`` writes first from the synthetic
+   set (random Inception); check finite losses, 0, 4, 4, 4 kernel
+   launches, frozen parameters and their EMA unchanged, trainable ones (the
+   kept-trainable upsample among them) moved, the evaluation's IS, FID and
+   KID finite and flagged untrusted, its Newton-Schulz root tried on the
+   card (the route it took and the covariances' ranks logged); evaluate
+   the finished run through ``train.test_id`` (IS, ``eval_scores.json``);
+   sample from the EMA parameters with DDPM (T = 1000), DDIM (50 steps)
+   and DPM-Solver (20 steps), timed; time sampling and Inception per 1,000
+   images, hold the Inception network on the card against the CPU and the
+   Frechet distance of two full-rank sigmas at d = 2048 (a finite
+   Newton-Schulz root on the card) against scipy's ``sqrtm``, timed; and
+   the trained model's fp32 forward on the card against the CPU;
 5. time the ``Unetbase-64`` forward at the ``bench.py`` protocol (batch 8,
    (8, 4, 128, 128, 3) fp32) with CUDA events;
 6. train the MNIST-Triangular VP diffusion (``configs/diff_mnist_triangular
@@ -119,6 +129,27 @@ def card_line() -> str:
 def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     from unet_design_tpu_torch.benchmark.probe import event_ms
     return event_ms(fn, iters, warmup)
+
+
+def profiled_us(fn):
+    """Device microseconds per call from ``torch.profiler``, or None where
+    its sessions stayed empty: these figures stand beside the CUDA-event
+    times the kernel line reports, and a tracer that records nothing is
+    not a fault of the kernel."""
+    from unet_design_tpu_torch.benchmark.probe import device_us
+    try:
+        return device_us(fn)
+    except RuntimeError as err:
+        log(f"[kernel] device time not measured: {err}")
+        return None
+
+
+def us_text(v, digits: int = 3) -> str:
+    return "not measured" if v is None else f"{v:.{digits}f} us"
+
+
+def mean_or_none(vs):
+    return None if None in vs else sum(vs) / len(vs)
 
 
 def phase_build():
@@ -267,7 +298,6 @@ def phase_kernel(device) -> dict:
         time_pyramid(haar, rand(shape), n_levels)
     # the WMH stage downsample needs only the last level: beside the
     # pyramid, the one library call that computes just that level
-    from unet_design_tpu_torch.benchmark.probe import device_us
     for shape in ((32, 200, 200, 2), (32, 200, 200, 1)):
         x = rand(shape)
 
@@ -276,7 +306,7 @@ def phase_kernel(device) -> dict:
         n_bytes = (x.numel() + x.numel() // 64) * x.element_size()
         log(f"[kernel] {shape} last level only, one F.avg_pool2d(8): per "
             f"call {time_ms(pool8) * 1e3:.2f} us (CUDA events), device "
-            f"{device_us(pool8):.3f} us (torch.profiler); its bound "
+            f"{us_text(profiled_us(pool8))} (torch.profiler); its bound "
             f"{n_bytes / BYTES_PER_S * 1e6:.3f} us ({n_bytes} B); on "
             f"{card_line()}")
     return dict(name="haar_pyramid", route="cuda",
@@ -289,7 +319,6 @@ def time_pyramid(haar, x: torch.Tensor, n_levels: int) -> dict:
     """Per-call (CUDA events) and device (profiler) times of the kernel,
     its plain version, the ``F.avg_pool2d`` chain and an empty kernel on
     the kernel's grid, kernel and chain in turns; and the bound."""
-    from unet_design_tpu_torch.benchmark.probe import device_us
 
     def kernel():
         return haar.haar_pyramid(x, n_levels)
@@ -314,10 +343,10 @@ def time_pyramid(haar, x: torch.Tensor, n_levels: int) -> dict:
         for name, fn in (("kernel", kernel), ("chain", chain)):
             per_call[name].append(time_ms(fn) * 1e3)
         for name, fn in (("kernel", kernel), ("chain", chain)):
-            dev[name].append(device_us(fn))
+            dev[name].append(profiled_us(fn))
     plain_us = time_ms(plain) * 1e3
-    plain_dev = device_us(plain)
-    empty_us, empty_dev = time_ms(empty) * 1e3, device_us(empty)
+    plain_dev = profiled_us(plain)
+    empty_us, empty_dev = time_ms(empty) * 1e3, profiled_us(empty)
 
     out_elems = sum(x.numel() >> (2 * l) for l in range(1, n_levels))
     n_bytes = (x.numel() + out_elems) * x.element_size()
@@ -325,7 +354,7 @@ def time_pyramid(haar, x: torch.Tensor, n_levels: int) -> dict:
     bound_s = max(n_bytes / BYTES_PER_S, n_ops / FP32_OPS_PER_S)
     bound_by = "bytes" if n_bytes / BYTES_PER_S >= n_ops / FP32_OPS_PER_S \
         else "operations"
-    k_dev = sum(dev["kernel"]) / 2
+    k_dev = mean_or_none(dev["kernel"])
     log(f"[kernel] {tuple(x.shape)} {str(x.dtype)[6:]} L{n_levels} on "
         f"{card_line()}: per call (CUDA events, kernel/chain in turns) "
         f"kernel {per_call['kernel']} us, F.avg_pool2d chain "
@@ -333,14 +362,15 @@ def time_pyramid(haar, x: torch.Tensor, n_levels: int) -> dict:
         f"on grid {plan.grid} {empty_us:.2f} us")
     log(f"[kernel] {tuple(x.shape)} L{n_levels} device time per call "
         f"(torch.profiler): kernel {dev['kernel']} us, chain {dev['chain']}"
-        f" us, plain {plain_dev:.2f} us, launch floor (empty kernel "
-        f"on grid {plan.grid}) {empty_dev:.3f} us; bound "
+        f" us, plain {us_text(plain_dev, 2)}, launch floor (empty kernel "
+        f"on grid {plan.grid}) {us_text(empty_dev)}; bound "
         f"{bound_s * 1e6:.3f} us ({n_bytes} B, {bound_by}), "
-        f"{bound_s * 1e6 / k_dev:.3f} of it reached")
+        + ("reached: not measured" if k_dev is None else
+           f"{bound_s * 1e6 / k_dev:.3f} of it reached"))
     return dict(ms=sum(per_call["kernel"]) / 2e3, plain_ms=plain_us / 1e3,
                 bound_ms=bound_s * 1e3, bound_by=bound_by,
                 library_ms=sum(per_call["chain"]) / 2e3, device_us=k_dev,
-                library_device_us=sum(dev["chain"]) / 2,
+                library_device_us=mean_or_none(dev["chain"]),
                 launch_floor_us=empty_dev)
 
 
@@ -458,13 +488,17 @@ def phase_slice() -> int:
 
 DDPM_STEPS = 4          # per stage, 4 stages
 SAMPLE_BATCH = 16
+EVAL_STEP = 12          # the first step of stage 3 (32x32, 4 levels)
+EVAL_IMAGES = 256
 
 
-def _ddpm_config(logdir: str, stage: int):
+def _ddpm_config(logdir: str, stage: int, cache: str):
     """``configs/diff_cifar_staged.yaml``'s model and recipe, written out
     (the card's machine need not have a YAML reader), on 512 synthetic
     CIFAR-shaped images, ``DDPM_STEPS`` steps a stage; the run stops after
-    ``stage`` and a later call resumes it."""
+    ``stage`` and a later call resumes it.  Its evaluation fires once, at
+    ``EVAL_STEP``: ``EVAL_IMAGES`` DPM-Solver-20 samples scored against the
+    stats cache ``cache``."""
     from unet_design_tpu_torch.tasks import diff_cifar
     cfg = diff_cifar.Config()
     cfg.device = "cuda"
@@ -485,29 +519,102 @@ def _ddpm_config(logdir: str, stage: int):
     t.stop_after_steps = DDPM_STEPS * (stage + 1)
     t.resume = stage > 0
     t.logdir = logdir
+    t.eval_step, t.num_eval_images = EVAL_STEP, EVAL_IMAGES
+    t.fid_stats_cache = cache
+    d.sampler, d.sample_steps = "dpm_solver", 20
     return cfg
 
 
+def _check_eval_scores(where: str, scores: dict,
+                       keys=("IS", "IS_std", "FID", "KID", "KID_std")) -> None:
+    """The evaluation's keys, finite, flagged untrusted (random Inception:
+    the ``pt_inception`` weights are not in the repository)."""
+    log(f"[ddpm-eval] {where}: {scores}")
+    if set(scores) != {*keys, "untrusted_random_inception_weights"} or \
+            not all(np.isfinite(v) for v in scores.values()) or \
+            scores["untrusted_random_inception_weights"] != 1.0:
+        raise AssertionError(f"{where}: scores {scores}")
+
+
+def _spy_on_fid(fid) -> tuple:
+    """Wrap ``fid.frechet_distance`` and ``fid.sqrt_newton_schulz`` (as the
+    evaluator calls them) to record each distance's arguments and value and
+    whether each Newton-Schulz root was finite; returns the two lists and
+    a function that puts the originals back."""
+    real_fd, real_ns = fid.frechet_distance, fid.sqrt_newton_schulz
+    distances, roots = [], []
+
+    def ns_spy(a):
+        root = real_ns(a)
+        roots.append((bool(torch.isfinite(root).all()),
+                      float(root.double().trace())))
+        return root
+
+    def fd_spy(mu1, sigma1, mu2, sigma2, **kw):
+        value = real_fd(mu1, sigma1, mu2, sigma2, **kw)
+        distances.append((mu1, sigma1, mu2, sigma2, kw.get("device"), value))
+        return value
+
+    def restore():
+        fid.frechet_distance, fid.sqrt_newton_schulz = real_fd, real_ns
+    fid.frechet_distance, fid.sqrt_newton_schulz = fd_spy, ns_spy
+    return distances, roots, restore
+
+
+def _log_fid_route(distances, roots) -> None:
+    """The in-training FID tried the Newton-Schulz root on the card; it
+    took that root where it was finite, and scipy's host ``sqrtm`` where
+    not.  Logs which, with each covariance's count of eigenvalues above
+    1e-8 of its largest (the random network's features are rank-deficient,
+    so its root is not finite)."""
+    if len(distances) != 1 or len(roots) != 1 or \
+            distances[0][4].type != "cuda":
+        raise AssertionError(f"in-training FID: {len(distances)} distances, "
+                             f"roots {roots}, device "
+                             f"{[d[4] for d in distances]}")
+    _, s1, _, s2, device, value = distances[0]
+    ranks = [int((e > 1e-8 * e[-1]).sum())
+             for e in (np.linalg.eigvalsh(s1), np.linalg.eigvalsh(s2))]
+    log(f"[ddpm-eval] in-training FID {value!r}: Newton-Schulz on {device}, "
+        f"root finite {roots[0][0]}, so "
+        f"{'that root' if roots[0][0] else 'scipy sqrtm on the host'}; "
+        f"eigenvalues above 1e-8 of the largest (samples, cache): {ranks} "
+        f"of 2048")
+
+
 def phase_ddpm() -> int:
+    from unet_design_tpu_torch.evalx import fid
     from unet_design_tpu_torch.ops import haar
     from unet_design_tpu_torch.process import diffusion
-    from unet_design_tpu_torch.tasks import diff_cifar
+    from unet_design_tpu_torch.tasks import compute_fid_stats, diff_cifar
     from unet_design_tpu_torch.train import freezing
 
-    logdir = os.path.join(HERE, "runs", "chip_smoke_ddpm")
-    shutil.rmtree(logdir, ignore_errors=True)
+    base = os.path.join(HERE, "runs", "chip_smoke_ddpm")
+    shutil.rmtree(base, ignore_errors=True)
+    logdir = os.path.join(base, "run")
+    # the FID reference statistics of a synthetic training set, from the
+    # random Inception (what a run without the pt_inception weights
+    # compares with)
+    cache = os.path.join(base, "stats", "synthetic512.npz")
+    t0 = time.perf_counter()
+    compute_fid_stats.main(["--synthetic-size", "512", "--device", "cuda",
+                            "--out", cache])
+    log(f"[ddpm-eval] compute_fid_stats on 512 synthetic images (random "
+        f"Inception, batch 50): {time.perf_counter() - t0:.2f} s")
+    distances, roots, restore_fid = _spy_on_fid(fid)
     snapshots, per_stage = [], []
     state = None
     haar.launches = 0   # the DDPM path starts here
     for stage in range(4):
         before = haar.launches
-        state = diff_cifar.train(_ddpm_config(logdir, stage))
+        state = diff_cifar.train(_ddpm_config(logdir, stage, cache))
         per_stage.append(haar.launches - before)
         snapshots.append((
             {k: v.detach().clone() for k, v in
              state.model.state_dict().items()},
             {k: v.clone() for k, v in state.ema.items()}))
     launches = haar.launches  # the DDPM path ends here
+    restore_fid()
 
     records = [json.loads(l) for l in open(os.path.join(logdir,
                                                         "metrics.jsonl"))]
@@ -546,8 +653,30 @@ def phase_ddpm() -> int:
             raise AssertionError(f"stage {stage}: frozen tensors moved "
                                  f"{moved[:5]}, trained {len(trained)}")
 
+    # the evaluation inside training, then the finished run by test_id
+    evals = [r for r in records if "eval/IS" in r]
+    if [r["step"] for r in evals] != [EVAL_STEP]:
+        raise AssertionError(f"evaluations at {[r['step'] for r in evals]}")
+    _check_eval_scores(f"in training at step {EVAL_STEP} ({EVAL_IMAGES} "
+                       f"DPM-Solver-20 samples, 32x32, 4 levels)",
+                       {k[5:]: v for k, v in evals[0].items()
+                        if k.startswith("eval/")})
+    _log_fid_route(distances, roots)
+    # IS only: scoring the run again against the cache would repeat the
+    # in-training route, with its ~10 s of host sqrtm
+    t0 = time.perf_counter()
+    diff_cifar.main([f"train.test_id={logdir}", "device=cuda",
+                     f"train.num_eval_images={EVAL_IMAGES}",
+                     "diffusion.sampler=dpm_solver",
+                     "diffusion.sample_steps=20"])
+    with open(os.path.join(logdir, "eval", "eval_scores.json")) as f:
+        _check_eval_scores(f"train.test_id of the finished run ({EVAL_IMAGES} "
+                           f"images, no stats cache, "
+                           f"{time.perf_counter() - t0:.2f} s)",
+                           json.load(f), {"IS", "IS_std"})
+
     # the three samplers on the EMA parameters, full depth
-    cfg = _ddpm_config(logdir, 3)
+    cfg = _ddpm_config(logdir, 3, cache)
     model = state.model.eval()
     model.load_state_dict(state.ema)
     sch = diffusion.DDPMSchedule.create(1e-4, 0.02, 1000).to("cuda")
@@ -568,6 +697,7 @@ def phase_ddpm() -> int:
         if x0.shape != x_T.shape or not torch.isfinite(x0).all():
             raise AssertionError(f"{kind} samples: {tuple(x0.shape)}, "
                                  f"finite {bool(torch.isfinite(x0).all())}")
+    ddpm_eval_measurements(cfg, model, sch)
 
     # the trained parameters in an fp32 model, on the card and on the CPU
     cfg.model.use_bf16 = False
@@ -591,8 +721,107 @@ def phase_ddpm() -> int:
             f"{err:.3g} (scale {scale:.3g}, tol 1e-4 relative)")
         if not torch.isfinite(a).all() or err > 1e-4 * max(scale, 1e-6):
             raise AssertionError(f"card forward disagrees with CPU: {err}")
-    shutil.rmtree(logdir, ignore_errors=True)
+    shutil.rmtree(base, ignore_errors=True)
     return launches
+
+
+def ddpm_eval_measurements(cfg, model, sch) -> None:
+    """What a 50,000-image evaluation costs, per 1,000 images: sampling
+    (DPM-Solver-20 timed at batch 256; DDPM-1000 as 50 ancestral steps
+    timed at batch 256, on a 50-step schedule, times 20) and Inception
+    (batch 100); the Inception network on the card against the CPU (8
+    images, blocks 3 and 4, 1e-4 relative); the Frechet distance of two
+    full-rank sigmas at d = 2048 through the evaluator's call, its
+    Newton-Schulz root finite on the card and its trace against scipy's
+    ``sqrtm`` in float64 at 1e-3 relative, the root timed."""
+    import scipy.linalg
+    from unet_design_tpu_torch.evalx import fid, inception
+    from unet_design_tpu_torch.process import diffusion
+    from unet_design_tpu_torch.tasks import diff_cifar
+    card = card_line()
+    gen = torch.Generator("cuda").manual_seed(1)
+    x_T = torch.randn((256, 32, 32, 3), generator=gen, device="cuda")
+    cfg.diffusion.sampler, cfg.diffusion.sample_steps = "dpm_solver", 20
+    sampler = diff_cifar.make_sampler(cfg, model, sch, 4)
+    sampler(x_T[:8])   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    images = (sampler(x_T) + 1.0) / 2.0
+    torch.cuda.synchronize()
+    dpm_s = (time.perf_counter() - t0) * 1000 / 256
+    # the ancestral sampler's step costs the same whatever T is: one
+    # forward, the host's schedule lookups, a noise draw, the update
+    cfg.diffusion.sampler = "ddpm"
+    sch50 = diffusion.DDPMSchedule.create(1e-4, 0.02, 50).to("cuda")
+    ddpm50 = diff_cifar.make_sampler(cfg, model, sch50, 4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ddpm50(x_T, generator=gen)
+    torch.cuda.synchronize()
+    ddpm50_s = time.perf_counter() - t0
+    ddpm_s = ddpm50_s * 20 * 1000 / 256
+    t = torch.randint(0, 1000, (256,), generator=gen, device="cuda")
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: model(x_T, t, n_levels_used=4), iters=10,
+                         warmup=2)
+    ev = fid.FIDEvaluator(batch_size=100, device="cuda")
+    ev.activations(images[:100])        # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acts, _ = ev.activations(images)
+    torch.cuda.synchronize()
+    inc_s = (time.perf_counter() - t0) * 1000 / 256
+    log(f"[ddpm-eval] seconds per 1,000 images on {card}: sampling "
+        f"DPM-Solver-20 {dpm_s:.3f} (batch 256, bf16 EMA model), DDPM-1000 "
+        f"{ddpm_s:.3f} (50 ancestral steps at batch 256: {ddpm50_s:.3f} s, "
+        f"times 20; one forward at batch 256: {fwd_ms:.3f} ms); Inception "
+        f"{inc_s:.3f} (batch 100, fp32, TF32 off); Inception's share of a "
+        f"50,000-image evaluation: {inc_s / (inc_s + ddpm_s):.4f} with "
+        f"DDPM-1000 (the yaml's sampler), {inc_s / (inc_s + dpm_s):.4f} with "
+        f"DPM-Solver-20")
+    if acts.shape != (256, 2048) or not np.isfinite(acts).all():
+        raise AssertionError(f"Inception features {acts.shape}")
+
+    cpu_net = inception.fid_inception()
+    with torch.no_grad():
+        got = ev.model(images[:8])
+        want = cpu_net(images[:8].cpu())
+    for block, a, b in zip((3, 4), got, want, strict=True):
+        err = float((a.cpu() - b).abs().max())
+        scale = float(b.abs().max())
+        log(f"[ddpm-eval] Inception block {block} {tuple(a.shape)} card vs "
+            f"CPU: max abs err {err:.3g} (scale {scale:.3g}, tol 1e-4 "
+            f"relative)")
+        if not torch.isfinite(a).all() or err > 1e-4 * scale:
+            raise AssertionError(f"Inception block {block}: {err}")
+
+    # two full-rank 2048 x 2048 covariances (6,144 seeded normal rows each)
+    rng = np.random.default_rng(0)
+    mu1, s1 = fid.activation_statistics(rng.standard_normal((6144, 2048)))
+    mu2, s2 = fid.activation_statistics(
+        1.5 * rng.standard_normal((6144, 2048)) + 0.3)
+    _, roots, restore_fid = _spy_on_fid(fid)
+    got = fid.frechet_distance(mu1, s1, mu2, s2, device=torch.device("cuda"))
+    restore_fid()
+    if len(roots) != 1 or not roots[0][0]:
+        raise AssertionError(f"Newton-Schulz roots {roots}")
+    prod = (torch.as_tensor(s1, dtype=torch.float32, device="cuda")
+            @ torch.as_tensor(s2, dtype=torch.float32, device="cuda"))
+    ns_ms = time_ms(lambda: fid.sqrt_newton_schulz(prod), iters=5, warmup=1)
+    t0 = time.perf_counter()
+    tr_ref = float(np.trace(scipy.linalg.sqrtm(s1 @ s2).real))
+    host_s = time.perf_counter() - t0
+    diff = mu1 - mu2
+    want = float(diff @ diff + np.trace(s1) + np.trace(s2) - 2 * tr_ref)
+    rel = abs(roots[0][1] - tr_ref) / abs(tr_ref)
+    log(f"[ddpm-eval] Frechet distance, d 2048, through the Newton-Schulz "
+        f"root on the card (100 iterations, fp32, TF32 off: {ns_ms:.3f} ms "
+        f"on {card}): trace {roots[0][1]:.6f} vs scipy sqrtm float64 "
+        f"{tr_ref:.6f} ({host_s:.1f} s on the host): {rel:.3g} relative "
+        f"(tol 1e-3); FID {got!r} vs {want!r}")
+    if not rel <= 1e-3 or not abs(got - want) <= 1e-3 * abs(want):
+        raise AssertionError(f"Newton-Schulz trace off by {rel}, FID {got} "
+                             f"vs {want}")
 
 
 MNIST_STEPS = 8         # per stage, 4 stages

@@ -1,5 +1,6 @@
 """Random parameters in a flax model's tree, drawn with numpy, for the
-port's parity tests of the PDE zoo and its scorer.
+port's parity tests (the PDE zoo and its scorer, and the JAX trainers that
+the slices' training tests replay).
 
 Shapes come from ``jax.eval_shape`` of the model's ``init``, which
 compiles nothing: flax's eager ``init`` of a modern U-Net compiles a
@@ -9,12 +10,13 @@ import jax
 import numpy as np
 
 
-def random_params(jmod, x, seed=1):
+def random_params(jmod, *inputs, seed=1):
     """LeCun-scaled kernels, spectral weights of unit gain per mode,
-    non-trivial biases and GroupNorm scales."""
+    non-trivial biases and GroupNorm scales, in the tree that
+    ``jmod.init(rng, *inputs)`` makes."""
     rng = np.random.default_rng(seed)
     shapes = jax.eval_shape(jmod.init, jax.random.PRNGKey(0),
-                            np.asarray(x))["params"]
+                            *map(np.asarray, inputs))["params"]
 
     def leaf(path, s):
         name = path[-1].key
@@ -41,5 +43,20 @@ class NumpyInit:
     def __getattr__(self, name):
         return getattr(self._model, name)
 
-    def init(self, rng, x):
-        return {"params": random_params(self._model, x)}
+    def init(self, rng, *inputs):
+        return {"params": random_params(self._model, *inputs)}
+
+
+class GivenInit(NumpyInit):
+    """A JAX model whose ``init(rng, *inputs)`` is ``init``, for instance
+    flax's own init compiled once with ``jax.jit`` (the eager ``init``
+    compiles an initializer per kernel shape, tens of seconds on the CPU);
+    its variables come as numpy copies, which a JAX trainer that donates
+    its state cannot delete."""
+
+    def __init__(self, model, init):
+        super().__init__(model)
+        self._init = init
+
+    def init(self, rng, *inputs):
+        return jax.tree_util.tree_map(np.array, self._init(rng, *inputs))

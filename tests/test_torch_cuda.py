@@ -1,5 +1,6 @@
 """The port's CUDA kernel against its plain version, and the diffusion,
-WMH and PDE-zoo slices' models, layers and trainers, on the card.
+WMH and PDE-zoo slices' models, layers and trainers, and the DDPM's
+evaluation (Inception, the Newton-Schulz root, ``evaluate``), on the card.
 
 Marked ``cuda``: each test skips where no CUDA device is present (the CPU
 tier-1 run).  On a machine with an H100 and ``nvcc``, run
@@ -358,3 +359,65 @@ def test_unetmod_train_step_at_shallow_water_shape(cuda):
              if not torch.equal(before[k], v)]
     assert "image_proj.weight" in moved and "final.weight" in moved
     assert len(moved) >= 0.9 * len(before)
+
+
+def test_inception_on_the_card_matches_cpu(cuda):
+    """The FID Inception (random network, seed 0) on 8 CIFAR-sized images:
+    blocks 3 and 4 on the card within 1e-4 of the output scale of the CPU's
+    (TF32 off)."""
+    from unet_design_tpu_torch.evalx import inception
+    from unet_design_tpu_torch.tasks import pde
+    pde.resolve_device("cuda")
+    x = torch.from_numpy(np.random.default_rng(7).uniform(
+        size=(8, 32, 32, 3)).astype(np.float32))
+    cpu = inception.fid_inception()
+    card = inception.fid_inception().to(cuda)
+    with torch.no_grad():
+        want, got = cpu(x), card(x.to(cuda))
+    for a, b in zip(got, want, strict=True):
+        assert torch.isfinite(a).all()
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
+            b.abs().max())
+
+
+def test_newton_schulz_on_the_card_matches_scipy(cuda):
+    """The 100-iteration root of an fp32 product of two 2048 x 2048
+    covariances on the card: its trace within 1e-3 of scipy's float64
+    ``sqrtm``."""
+    import scipy.linalg
+    from unet_design_tpu_torch.evalx import fid
+    from unet_design_tpu_torch.tasks import pde
+    pde.resolve_device("cuda")
+    rng = np.random.default_rng(0)
+    s1 = fid.activation_statistics(rng.standard_normal((6144, 2048)))[1]
+    s2 = fid.activation_statistics(
+        1.5 * rng.standard_normal((6144, 2048)) + 0.3)[1]
+    prod = (torch.as_tensor(s1, dtype=torch.float32, device=cuda)
+            @ torch.as_tensor(s2, dtype=torch.float32, device=cuda))
+    got = float(fid.sqrt_newton_schulz(prod).double().trace())
+    want = float(np.trace(scipy.linalg.sqrtm(s1 @ s2).real))
+    assert abs(got - want) <= 1e-3 * abs(want)
+
+
+def test_evaluate_on_the_card(cuda, tmp_path):
+    """``diff_cifar.evaluate`` of a narrow bf16 model on the card: 8
+    DPM-Solver samples scored by the random Inception against a cache that
+    ``tasks.compute_fid_stats`` writes: IS, FID and KID finite, flagged
+    untrusted."""
+    from unet_design_tpu_torch.process import diffusion
+    from unet_design_tpu_torch.tasks import compute_fid_stats, diff_cifar
+    from unet_design_tpu_torch.train import trainer
+    cache = compute_fid_stats.main(["--synthetic-size", "16", "--out",
+                                    str(tmp_path / "stats.npz")])
+    cfg = diff_cifar.Config()
+    cfg.diffusion.sampler, cfg.diffusion.sample_steps = "dpm_solver", 5
+    cfg.train.fid_stats_cache = cache
+    m = _small_multires(torch.bfloat16).to(cuda)
+    sch = diffusion.DDPMSchedule.create(1e-4, 0.02, 1000).to(cuda)
+    ema = {k: v.detach().clone() for k, v in m.named_parameters()}
+    scores = diff_cifar.evaluate(cfg, m, ema, sch, 4, 32, num_images=8,
+                                 generator=trainer.seeded_generator(cuda, 0))
+    assert set(scores) == {"IS", "IS_std", "FID", "KID", "KID_std",
+                           "untrusted_random_inception_weights"}
+    assert all(np.isfinite(v) for v in scores.values())
+    assert scores["untrusted_random_inception_weights"] == 1.0

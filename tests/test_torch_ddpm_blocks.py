@@ -192,7 +192,8 @@ def test_ddpm_init():
     assert float(lin.abs().max()) <= np.sqrt(6 / (256 + 128))
     assert float(blk.conv1.bias.detach().abs().max()) == 0
     assert torch.equal(blk.norm1.weight.detach(), torch.ones(64))
-    jk = np.asarray(jb.DDPMResBlock(out_channels=128).init(
+    # flax's own init, compiled once (eagerly it compiles per kernel shape)
+    jk = np.asarray(jax.jit(jb.DDPMResBlock(out_channels=128).init)(
         jax.random.PRNGKey(0), jnp.zeros((1, 4, 4, 64)),
         jnp.zeros((1, 256)))["params"]["Conv_0"]["kernel"])
     assert abs(float(jk.std()) / float(w.std()) - 1) < 0.05

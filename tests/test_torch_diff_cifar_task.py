@@ -1,21 +1,12 @@
-"""Port parity: the DDPM trainer (``tasks/diff_cifar.py``) and what it is
-built from (freeze labels, EMA, warmup, stages, gradient clipping, batch
-stream, flips, CIFAR-10 files, run configs) against the JAX package, and
-the port's own resume contract.
-
-The slice as a whole: the JAX trainer and the port train the same tiny
-staged Multi-ResNet DDPM (DWT encoder, multi-res loss, freezing, EMA, clip,
-warmup; 2 stages x 3 steps, dropout 0) from the same init (the JAX init,
-recomputed from ``PRNGKey(seed)`` as ``tasks/diff_cifar.py`` does, carried
-over through ``params=``), on the same numpy batch and flip streams, with
-the JAX trainer's per-step ``(t, noise)`` draws replayed through the port's
-``draw_t_noise``.  Per-step losses and gradient norms agree at rtol 1e-4,
-final parameters and EMA at 1e-4.
+"""Port parity: what the DDPM trainer (``tasks/diff_cifar.py``) is built
+from (freeze labels, EMA, warmup, stages, gradient clipping, batch stream,
+flips, CIFAR-10 files, run configs) against the JAX package, and the port's
+own resume contract.  The trainer against the JAX trainer, its sample
+grids and its evaluation are in ``test_torch_diff_cifar_train.py``.
 """
 import json
 import os
 import pickle
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -350,9 +341,7 @@ def test_run_config_save_and_restore(tmp_path):
         tconfig.resolve_run_dir(str(tmp_path / "missing"))
 
 
-@pytest.mark.parametrize("override", ["train.eval_step=10",
-                                      "train.test_id=some_run",
-                                      "parallel.data=2",
+@pytest.mark.parametrize("override", ["parallel.data=2",
                                       "data.device_cache=false"])
 def test_unported_options_raise(tmp_path, override):
     cfg = tconfig.parse_cli(tdc.Config, [override, "device=cpu",
@@ -410,83 +399,6 @@ def _records(logdir):
         return [json.loads(l) for l in f]
 
 
-def _jax_draws(cfg):
-    """Global step -> the JAX trainer's ``(t, noise)``: a stage key
-    ``fold_in(rng, 10_000 + stage)``, one split a step, the loss's split
-    into a timestep and a noise key (``tasks/diff_cifar.py:311``,
-    ``train/trainer.py:108``, ``process/diffusion.py:112-114``)."""
-    _, rng = jax.random.split(jax.random.PRNGKey(cfg.train.seed))
-    draws, step = {}, 0
-    n_stages = len(cfg.train.num_iterations_list)
-    for stage, iters in enumerate(cfg.train.num_iterations_list):
-        res = 32 >> (n_stages - 1 - stage)
-        key = jax.random.fold_in(rng, 10_000 + stage)
-        for _ in range(iters):
-            key, sub = jax.random.split(key)
-            t_rng, noise_rng = jax.random.split(sub)
-            shape = (cfg.data.batch_size, res, res, 3)
-            draws[step] = (
-                torch.from_numpy(np.array(jax.random.randint(
-                    t_rng, (shape[0],), 0, cfg.diffusion.T))).long(),
-                torch.from_numpy(np.array(jax.random.normal(noise_rng,
-                                                            shape))))
-            step += 1
-    return draws
-
-
-def _moving_cfg(tmp_path, name, mod=tdc):
-    """``_tiny_cfg`` with a learning rate and an EMA decay that move the
-    parameters and their EMA far past the comparison's tolerance."""
-    cfg = _tiny_cfg(tmp_path, name, mod)
-    cfg.train.lr = 3e-3
-    cfg.train.ema_decay = 0.5
-    return cfg
-
-
-def test_staged_training_matches_jax(tmp_path, monkeypatch):
-    jcfg = _moving_cfg(tmp_path, "jax", jdc)
-    jstate = jdc.train(jcfg)
-    # the JAX trainer's init, recomputed as tasks/diff_cifar.py:232-235 does
-    init_rng, _ = jax.random.split(jax.random.PRNGKey(jcfg.train.seed))
-    p0 = jdc.build_model(jcfg).init(init_rng, jnp.zeros((2, 32, 32, 3)),
-                                    jnp.zeros((2,), jnp.int32))["params"]
-    draws = _jax_draws(jcfg)
-
-    def replay(generator, x0, T, step):
-        t, noise = draws[step]
-        assert noise.shape == x0.shape
-        return t, noise
-    monkeypatch.setattr(tdc, "draw_t_noise", replay)
-    sd0 = convert.flax_to_state_dict(jax.tree_util.tree_map(np.asarray, p0))
-    tstate = tdc.train(_moving_cfg(tmp_path, "port"), params=sd0)
-
-    ref = [r for r in _records(jcfg.train.logdir) if "train/loss" in r]
-    got = [r for r in _records(str(tmp_path / "port")) if "train/loss" in r]
-    assert [r["step"] for r in got] == [r["step"] for r in ref] == \
-        list(range(6))
-    for a, b in zip(ref, got):
-        assert set(a) == set(b)
-        for k in a:
-            if k.startswith("train/"):
-                np.testing.assert_allclose(b[k], a[k], rtol=1e-4,
-                                           err_msg=f"step {a['step']} {k}")
-    for name, want_tree, got_sd in (
-            ("params", jstate.params, tstate.model.state_dict()),
-            ("ema", jstate.ema_params, tstate.ema)):
-        want = convert.flax_to_state_dict(
-            jax.tree_util.tree_map(np.asarray, want_tree))
-        assert set(got_sd) == set(want)
-        for k in want:
-            np.testing.assert_allclose(got_sd[k].numpy(), want[k].numpy(),
-                                       rtol=1e-4, atol=1e-4,
-                                       err_msg=f"{name} {k}")
-        # the comparison sees the update: the parameters and their EMA
-        # (trainable in the last stage) moved by far more than its tolerance
-        moved = max(float((got_sd[k] - sd0[k]).abs().max()) for k in want)
-        assert moved > 2e-3, (name, moved)
-    assert tstate.step == 6
-
-
 def _assert_same_state(a, b):
     for (ka, va), (kb, vb) in zip(a.model.state_dict().items(),
                                   b.model.state_dict().items(), strict=True):
@@ -527,36 +439,6 @@ def test_resume_equals_uninterrupted(tmp_path, stop_at):
     _assert_same_state(full, tdc.train(cfg3))
 
 
-def test_sample_step_logs_ema_grids(tmp_path, monkeypatch):
-    """``train.sample_step``: a grid of samples from the EMA parameters at
-    every active resolution (``unet_design_tpu/tasks/diff_cifar.py:
-    383-402``); the EMA sampler is the model with the EMA loaded; without
-    matplotlib the run fails in ``check_config``."""
-    cfg = _tiny_cfg(tmp_path, "grids")
-    cfg.diffusion.T = 10
-    cfg.train.sample_step = 3
-    cfg.train.sample_size = 4
-    cfg.train.ema_decay = 0.5
-    state = tdc.train(cfg)
-    assert sorted(os.listdir(tmp_path / "grids" / "figures")) == [
-        "samples_res_16_0.png", "samples_res_16_3.png",
-        "samples_res_32_3.png"]
-    sch = tdc.diffusion.DDPMSchedule.create(cfg.diffusion.beta_1,
-                                            cfg.diffusion.beta_T, 10)
-    x_T = torch.from_numpy(_x((2, 32, 32, 3), 4))
-    got = tdc.make_sampler(cfg, state.model, sch, 2, state.ema)(
-        x_T, torch.Generator().manual_seed(1))
-    assert not all(torch.equal(state.ema[n], p)
-                   for n, p in state.model.named_parameters())
-    state.model.load_state_dict(state.ema)
-    want = tdc.make_sampler(cfg, state.model, sch, 2)(
-        x_T, torch.Generator().manual_seed(1))
-    assert torch.equal(got, want)
-    monkeypatch.setitem(sys.modules, "matplotlib", None)
-    with pytest.raises(ImportError, match="train.sample_step"):
-        tdc.check_config(cfg)
-
-
 def test_stop_file_and_cli(tmp_path, monkeypatch):
     """A stop file in the logdir checkpoints after the current step and
     returns; the command line runs the same trainer."""
@@ -575,3 +457,5 @@ def test_stop_file_and_cli(tmp_path, monkeypatch):
     recs = _records(str(tmp_path / "cli"))
     assert [r["step"] for r in recs if "train/loss" in r] == [0]
     assert np.isfinite(recs[0]["train/loss"])
+
+

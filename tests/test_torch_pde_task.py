@@ -1,15 +1,7 @@
-"""Port parity: the PDE trainer and what it is built from (losses, rollout,
+"""Port parity: what the PDE trainer is built from (losses, rollout,
 metrics, schedule, freezing, config, data, checkpoints) against the JAX
-package, and the port's own resume contract.
-
-The slice as a whole: the JAX trainer and the port train the same tiny
-staged Multi-ResNet (DWT encoder, multi-res loss, freezing, AdamW with
-warmup-cosine, 2 stages x 2 epochs) from the same init (the JAX init,
-recomputed from ``PRNGKey(seed)`` as ``tasks/pde.py`` does, transplanted
-through ``params=``) on the same numpy window stream.  Per-epoch losses
-agree to rtol 1e-4 and final parameters to atol 1e-3: Adam divides by the
-root of the second moment, so a near-zero gradient's sign (fp32 rounding)
-moves a parameter by up to lr per step, hence a bound of a few steps x lr.
+package, and the port's own resume contract.  The trainer against the JAX
+trainer is in ``test_torch_pde_train.py``.
 """
 import json
 import os
@@ -381,35 +373,6 @@ def _tiny_cfg(tmp_path, name, mod=tpde):
 def _records(logdir):
     with open(os.path.join(logdir, "metrics.jsonl")) as f:
         return [json.loads(l) for l in f]
-
-
-def test_staged_training_matches_jax(tmp_path):
-    jcfg = _tiny_cfg(tmp_path, "jax", jpde)
-    jstate = jpde.train(jcfg)
-    # the JAX trainer's init, recomputed as tasks/pde.py:260-275 does
-    init_rng, _ = jax.random.split(jax.random.PRNGKey(jcfg.train.seed))
-    p0 = jpde.build_model(jcfg).init(init_rng, jnp.zeros((1, 4, 16, 16, 3)))
-    tcfg = _tiny_cfg(tmp_path, "port")
-    tstate = tpde.train(tcfg, params=convert.flax_to_state_dict(
-        jax.tree_util.tree_map(np.asarray, p0["params"])))
-
-    def per_epoch(logdir, key):
-        return [r[key] for r in _records(logdir) if key in r]
-
-    for key in ("train/loss_mean", "valid/loss/mse",
-                "valid/unrolled_loss_mean"):
-        ref = per_epoch(jcfg.train.logdir, key)
-        got = per_epoch(tcfg.train.logdir, key)
-        assert len(got) == len(ref) == 4, key
-        np.testing.assert_allclose(got, ref, rtol=1e-4, err_msg=key)
-    want = convert.flax_to_state_dict(
-        jax.tree_util.tree_map(np.asarray, jstate.params))
-    got = tstate.model.state_dict()
-    assert set(got) == set(want)
-    for k in want:
-        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
-                                   atol=1e-3, err_msg=k)
-    assert tstate.step == 4
 
 
 def _assert_same_state(a, b):

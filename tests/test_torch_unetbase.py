@@ -6,6 +6,8 @@ Random parameters in the flax model's tree, drawn with numpy, go through
 Tolerance 1e-4 (the JAX side's model tolerance): a dozen fp32 conv +
 GroupNorm layers, each summing in another order in the two frameworks.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -50,6 +52,14 @@ def _init(jmodel, x, seed=0):
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
+def _japply(jm, params, x, **kw):
+    """The JAX forward, jitted: one compile (eager flax compiles op by op,
+    ~10x slower for one forward; the grid's many level counts share the
+    eager op cache instead)."""
+    return jax.jit(functools.partial(jm.apply, **kw))({"params": params},
+                                                      jnp.asarray(x))
+
+
 def _as_list(y):
     return list(y) if isinstance(y, (list, tuple)) else [y]
 
@@ -60,7 +70,7 @@ def test_unetbase_forward():
     params = _init(jm, x)
     tm = convert.load_flax_params(
         tu.Unetbase(3, time_history=2, hidden_channels=8), params)
-    ref = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
+    ref = np.asarray(_japply(jm, params, x))
     with torch.no_grad():
         out = tm(torch.from_numpy(x)).numpy()
     assert out.shape == (2, 1, 16, 16, 3)
@@ -115,7 +125,7 @@ def test_unetbase_g_ablations(kw):
     params = _init(jm, x)
     tm = convert.load_flax_params(
         tu.UnetbaseG(3, time_history=2, hidden_channels=4, **kw), params)
-    ref = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
+    ref = np.asarray(_japply(jm, params, x))
     with torch.no_grad():
         out = tm(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(ref, out, **TOL)
@@ -139,7 +149,7 @@ def test_non_dyadic_resolution():
     tm = convert.load_flax_params(
         tu.UnetbaseG(3, time_history=1, hidden_channels=4, dwt_encoder=True),
         params)
-    ref = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
+    ref = np.asarray(_japply(jm, params, x))
     with torch.no_grad():
         out = tm(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(ref, out, **TOL)

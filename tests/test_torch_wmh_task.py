@@ -9,10 +9,12 @@ test's configuration, ``tests/test_determinism_resume.py::_tiny_wmh_cfg``:
 DWT encoder, 2 stages x 2 epochs with freezing; here with the multi-res
 Dice loss on, so the re-binarized mask chain is compared too) from the
 same init (the JAX init, recomputed from ``PRNGKey(seed)`` and
-transplanted through ``params=``) on the same host batch stream.  The JAX
+transplanted through ``params=``; flax's init compiled once with
+``jax.jit`` for both) on the same host batch stream.  The JAX
 trainer runs once per module.  Per-epoch losses, validation DSC and the
 test sweep agree at rtol 1e-4; the best parameters at 1e-4.
 """
+import functools
 import json
 import os
 
@@ -33,6 +35,7 @@ from unet_design_tpu_torch.tasks import wmh as twmh
 from unet_design_tpu_torch.tasks import wmh_leave_one_out as tloo
 from unet_design_tpu_torch.train.checkpoint import CheckpointManager
 from unet_design_tpu_torch.utils import config as tconfig
+from _flax_numpy_params import GivenInit
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -65,16 +68,25 @@ def _per_epoch(logdir, key):
     return [r[key] for r in _records(logdir) if key in r]
 
 
+@functools.lru_cache(maxsize=None)
+def _jinit():
+    """flax's init of the tiny configuration's ``WMHSegUnet``, compiled
+    once for the JAX trainer and :func:`_jax_init` (eagerly it compiles an
+    initializer per kernel shape, ~35 s)."""
+    cfg = _tiny_cfg("unused", jwmh)
+    return jax.jit(JWMHSegUnet(
+        hidden_channels=cfg.model.hidden_channels,
+        dwt_encoder=cfg.model.dwt_encoder,
+        multi_res_loss=cfg.model.multi_res_loss,
+        sequ_mode=len(cfg.train.num_epochs_list) > 1).init)
+
+
 def _jax_init(cfg):
-    """The JAX trainer's initial parameters (``tasks/wmh.py:153-155``),
+    """The JAX trainer's initial parameters (``tasks/wmh.py:139-142``),
     as a ``state_dict``."""
     init_rng, _ = jax.random.split(jax.random.PRNGKey(cfg.train.seed))
-    m = JWMHSegUnet(hidden_channels=cfg.model.hidden_channels,
-                    dwt_encoder=cfg.model.dwt_encoder,
-                    multi_res_loss=cfg.model.multi_res_loss,
-                    sequ_mode=len(cfg.train.num_epochs_list) > 1)
     r = cfg.data.resolution
-    p = m.init(init_rng, jnp.zeros((1, r, r, 2)))["params"]
+    p = _jinit()(init_rng, jnp.zeros((1, r, r, 2)))["params"]
     return convert.flax_to_state_dict(jax.tree_util.tree_map(np.asarray, p))
 
 
@@ -88,7 +100,10 @@ def runs(tmp_path_factory):
     torch.set_num_threads(1)
     base = tmp_path_factory.mktemp("wmh")
     jcfg = _tiny_cfg(base / "jax", jwmh)
-    jbest, jsweep = jwmh.train(jcfg)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jwmh, "WMHSegUnet",
+                   lambda **kw: GivenInit(JWMHSegUnet(**kw), _jinit()))
+        jbest, jsweep = jwmh.train(jcfg)
     tcfg = _tiny_cfg(base / "port")
     init = _jax_init(tcfg)
     twmh.downsample_routes.clear()
@@ -354,14 +369,19 @@ def test_leave_one_out_matches_jax():
     spacings = [jdata.CHALLENGE_SPACINGS["utrecht"]] * 3
     kw = dict(hidden_channels=4, epochs=1, batch_size=4, dwt_encoder=True)
     jcfg = jloo.LOOConfig(**kw)
-    want = jloo.leave_one_out(jcfg, imgs, masks, ranges, patients=[0, 1],
-                              spacings=spacings)
+    # flax's init compiled once, for the protocol's models and the replay
+    build = jloo.build_loo_model
+    jinit = jax.jit(build(jcfg).init)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jloo, "build_loo_model",
+                   lambda cfg: GivenInit(build(cfg), jinit))
+        want = jloo.leave_one_out(jcfg, imgs, masks, ranges,
+                                  patients=[0, 1], spacings=spacings)
     rng, init = jax.random.PRNGKey(jcfg.seed), {}
     for p in (0, 1):   # jloo.leave_one_out's and train_one's splits
         rng, t_rng = jax.random.split(rng)
         init_rng, _ = jax.random.split(t_rng)
-        params = jloo.build_loo_model(jcfg).init(
-            init_rng, jnp.zeros((1, 24, 24, 2)))["params"]
+        params = jinit(init_rng, jnp.zeros((1, 24, 24, 2)))["params"]
         init[p] = convert.flax_to_state_dict(
             jax.tree_util.tree_map(np.asarray, params))
     got = tloo.leave_one_out(tloo.LOOConfig(**kw, device="cpu"), imgs,

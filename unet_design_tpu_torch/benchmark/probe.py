@@ -30,8 +30,17 @@ a profiled training run.
    modes, U-FNet2-16m's level 0 (8, 128, 128, 64) with 16 and level 1
    (8, 64, 64, 128) with 8; forward, and forward with backward.
 
-``--parts`` picks among ``forward``, ``pde``, ``wmh`` and ``zoo`` (default:
-all).
+5. (``--parts fid``) Why the FID's Newton-Schulz root is or is not
+   finite: for the evaluator's random Inception and for the same network
+   with each BatchNorm's statistics set to its input's over 256 synthetic
+   CIFAR-shaped images, the pool-feature covariances of 2,304 and 4,608
+   synthetic images (seeds 1 and 2): each one's count of eigenvalues above
+   1e-8 of its largest and its smallest and largest, and whether the
+   Newton-Schulz root (fp32, on the card) of the two sigmas' product is
+   finite, beside the trace of scipy's ``sqrtm`` in float64.
+
+``--parts`` picks among ``forward``, ``pde``, ``wmh``, ``zoo`` and ``fid``
+(default: all).
 Prints one JSON object as its last line and writes it to ``--out``.  Needs
 a CUDA device; imports nothing of JAX.
 """
@@ -392,25 +401,30 @@ def zoo(steps: int = 5) -> dict:
     return {"models": models, "spectral_routes": routes}
 
 
-def device_us(fn, calls: int = 50) -> float:
+def device_us(fn, calls: int = 50, attempts: int = 3) -> float:
     """Device time per call, summed over the kernels ``fn`` launches, from
     ``torch.profiler``; CUDA events include the host's time to enqueue,
-    which at a few microseconds of device work is most of it.  Raises if
-    the profiler sees no device time."""
+    which at a few microseconds of device work is most of it.  Now and
+    then a session hands back none of its device records (once in some
+    300 sessions on an H100 80GB HBM3), so a profile that holds
+    fewer device events than ``calls`` is taken again, up to ``attempts``
+    times; raises if none is whole."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    # each device event's own nanoseconds: key_averages() keeps whole
-    # microseconds per event in recent PyTorch, which reads a 0.87 us
-    # kernel as 0
-    total_ns = sum(t - s for _, s, t in device_events(prof))
-    if not total_ns:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return total_ns / 1e3 / calls
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        # each device event's own nanoseconds: key_averages() keeps whole
+        # microseconds per event in recent PyTorch, which reads a 0.87 us
+        # kernel as 0
+        events = device_events(prof)
+        if len(events) >= calls:
+            return sum(t - s for _, s, t in events) / 1e3 / calls
+    raise RuntimeError(f"torch.profiler recorded fewer than {calls} device "
+                       f"events for {calls} calls in {attempts} sessions")
 
 
 def _kernel_class(name: str) -> str:
@@ -439,10 +453,68 @@ def _kernel_class(name: str) -> str:
     return "elementwise / other"
 
 
+def calibrate_batchnorm_(model: torch.nn.Module, images: torch.Tensor
+                         ) -> torch.nn.Module:
+    """Set each inference BatchNorm's running mean and variance to those of
+    its input over ``images``, in the forward's order."""
+    from unet_design_tpu_torch.evalx import inception
+
+    def pre(mod, inp):
+        mod.running_mean.copy_(inp[0].mean(dim=(0, 2, 3)))
+        mod.running_var.copy_(inp[0].var(dim=(0, 2, 3), unbiased=False))
+    hooks = [m.register_forward_pre_hook(pre) for m in model.modules()
+             if isinstance(m, inception.FrozenBatchNorm2d)]
+    with torch.no_grad():
+        model(images)
+    for h in hooks:
+        h.remove()
+    return model
+
+
+def fid_rank() -> list:
+    import scipy.linalg
+    from unet_design_tpu_torch.data import image as image_data
+    from unet_design_tpu_torch.evalx import fid, inception
+
+    def images(n, seed):
+        x, _ = image_data.synthetic_cifar10(n, seed)
+        return torch.from_numpy((x + 1.0) / 2.0).cuda()
+
+    nets = {"random": inception.fid_inception().cuda(),
+            "batchnorm-calibrated": calibrate_batchnorm_(
+                inception.fid_inception().cuda(), images(256, 7))}
+    rows = []
+    for name, net in nets.items():
+        ev = fid.FIDEvaluator(batch_size=100, device="cuda")
+        ev.model = net
+        for n in (2304, 4608):
+            row = {"network": name, "images": n, "sigmas": []}
+            sigmas = []
+            for seed in (1, 2):
+                _, sigma = fid.activation_statistics(
+                    ev.activations(images(n, seed))[0])
+                e = np.linalg.eigvalsh(sigma)
+                row["sigmas"].append({
+                    "seed": seed, "eig_min": float(e[0]),
+                    "eig_max": float(e[-1]),
+                    "above_1e-8_of_max": int((e > 1e-8 * e[-1]).sum())})
+                sigmas.append(sigma)
+            s1, s2 = sigmas
+            root = fid.sqrt_newton_schulz(
+                torch.as_tensor(s1, dtype=torch.float32, device="cuda")
+                @ torch.as_tensor(s2, dtype=torch.float32, device="cuda"))
+            row["newton_schulz_finite"] = bool(torch.isfinite(root).all())
+            row["newton_schulz_trace"] = float(root.double().trace())
+            row["scipy_trace"] = float(np.trace(
+                scipy.linalg.sqrtm(s1 @ s2).real))
+            rows.append(row)
+    return rows
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--out", default=None)
-    p.add_argument("--parts", default="forward,pde,wmh,zoo")
+    p.add_argument("--parts", default="forward,pde,wmh,zoo,fid")
     args = p.parse_args(argv)
     parts = args.parts.split(",")
     if not torch.cuda.is_available():
@@ -509,6 +581,14 @@ def main(argv=None) -> int:
                               f"{v['forward_backward_ms']:.4f} ms"
                               for k, v in r.items() if k in ("dft", "fft"))
                   + f"; card {result['card']}", flush=True)
+    if "fid" in parts:
+        result["fid_rank"] = rows = fid_rank()
+        for r in rows:
+            print(f"[fid] {r['network']} Inception, {r['images']} synthetic "
+                  f"images: sigmas {r['sigmas']}; Newton-Schulz root finite "
+                  f"{r['newton_schulz_finite']}, trace "
+                  f"{r['newton_schulz_trace']}, scipy sqrtm's "
+                  f"{r['scipy_trace']}; card {result['card']}", flush=True)
     line = json.dumps(result)
     if args.out:
         with open(args.out, "w") as f:

@@ -35,7 +35,10 @@ key a rule on, declares its own root rule as ``FLAX_ROOT_PREFIXES``: the
 legacy WMH net maps ``Conv_k`` -> ``convs.k`` (``{"Conv_": "convs."}``), the
 modern U-Net its head's ``GroupNorm_0`` -> ``head_norm``, a PDE ResNet block
 loaded alone its ``GroupNorm_k`` -> ``norms.k``.
-Input is the nested dict of arrays under flax's ``"params"``.
+Input is the nested dict of arrays under flax's ``"params"``; a model with
+BatchNorm statistics also gives flax's ``"batch_stats"`` collection
+(:func:`flax_variables_to_state_dict`), whose ``mean`` / ``var`` leaves are
+the torch buffers ``running_mean`` / ``running_var`` of the same module.
 """
 
 from __future__ import annotations
@@ -82,8 +85,13 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
             yield prefix + (k,), np.asarray(v)
 
 
+_PARAM_LEAVES = {"kernel": "weight", "scale": "weight"}
+_STATS_LEAVES = {"mean": "running_mean", "var": "running_var"}
+
+
 def _torch_key(path: Tuple[str, ...],
-               root_prefixes: Optional[Mapping[str, str]] = None) -> str:
+               root_prefixes: Optional[Mapping[str, str]] = None,
+               leaves: Mapping[str, str] = _PARAM_LEAVES) -> str:
     flax_path = path
     for old, new in (root_prefixes or {}).items():
         if len(path) > 1 and path[0].startswith(old):
@@ -96,7 +104,7 @@ def _torch_key(path: Tuple[str, ...],
             continue  # flax nn.GroupNorm inside the fp32 wrapper
         out.append(_rename(path[i - 1] if i else "", seg))
     leaf = path[-1]
-    out.append({"kernel": "weight", "scale": "weight"}.get(leaf, leaf))
+    out.append(leaves.get(leaf, leaf))
     return ".".join(out)
 
 
@@ -118,6 +126,21 @@ def flax_to_state_dict(params: Mapping[str, Any],
     return {_torch_key(p, root_prefixes): torch.from_numpy(
                 np.array(_torch_value(p, a), dtype=np.float32, order="C"))
             for p, a in _flatten(params)}
+
+
+def flax_variables_to_state_dict(
+        variables: Mapping[str, Mapping[str, Any]],
+        root_prefixes: Optional[Mapping[str, str]] = None
+) -> Dict[str, torch.Tensor]:
+    """Flax ``{"params": ..., "batch_stats": ...}`` -> one ``state_dict``:
+    the parameters as :func:`flax_to_state_dict` converts them, and each
+    BatchNorm's ``mean`` / ``var`` as ``running_mean`` / ``running_var``
+    beside its ``weight`` / ``bias``."""
+    out = flax_to_state_dict(variables["params"], root_prefixes)
+    for p, a in _flatten(variables.get("batch_stats", {})):
+        out[_torch_key(p, root_prefixes, _STATS_LEAVES)] = torch.from_numpy(
+            np.array(a, dtype=np.float32, order="C"))
+    return out
 
 
 def load_flax_params(model: nn.Module, params: Mapping[str, Any]

@@ -27,11 +27,19 @@ get gradients though neither Adam nor the EMA touches them; the warmup
 restarts at every stage, at a learning rate of 0 on the stage's first step.
 
 Every ``train.sample_step`` steps a grid of samples from the EMA
-parameters is logged at every active resolution (``:383-402``).
+parameters is logged at every active resolution (``:383-402``), and every
+``train.eval_step`` steps (``step > 0``, before the step count moves on)
+the EMA is scored at the stage's resolution and level count by
+:func:`evaluate`: IS, and FID and KID when ``train.fid_stats_cache`` names
+a stats cache (``tasks/compute_fid_stats.py`` writes one), logged as
+``eval/<score>``.  ``train.test_id=<run>`` evaluates a finished run's EMA
+without training (:func:`test_eval`).  Without ``train.fid_weights`` (the
+``pt_inception`` ``.pth``) the scores come from a random Inception and
+carry ``untrusted_random_inception_weights``.
 
-Not ported yet (``NotImplementedError``, ``ROADMAP.md`` queue A): FID/IS
-evaluation (``train.eval_step``, ``train.test_id``), ``parallel.*`` > 1
-and the host batches that serve it (``data.device_cache=false``).
+Not ported yet (``NotImplementedError``, ``ROADMAP.md`` queue A):
+``parallel.*`` > 1 and the host batches that serve it
+(``data.device_cache=false``).
 
 Run: ``python -m unet_design_tpu_torch.tasks.diff_cifar --config <yaml>
 [k=v ...]``.
@@ -40,23 +48,27 @@ Run: ``python -m unet_design_tpu_torch.tasks.diff_cifar --config <yaml>
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 import os
-from typing import Callable, List, Mapping, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from unet_design_tpu_torch.data import image as image_data
+from unet_design_tpu_torch.evalx.fid import FIDEvaluator
+from unet_design_tpu_torch.evalx.inception import load_fid_params
 from unet_design_tpu_torch.models.multires_unet import MultiResUNet
 from unet_design_tpu_torch.ops import blocks, haar
 from unet_design_tpu_torch.parallel.mesh import ParallelConfig
 from unet_design_tpu_torch.process import diffusion
-from unet_design_tpu_torch.tasks.pde import resolve_device
 from unet_design_tpu_torch.train import freezing, schedules, trainer
+from unet_design_tpu_torch.train.checkpoint import CheckpointManager
 from unet_design_tpu_torch.train.ema import ema_update
 from unet_design_tpu_torch.utils import config as config_lib
 from unet_design_tpu_torch.utils import visualization
+from unet_design_tpu_torch.utils.device import resolve_device
 from unet_design_tpu_torch.utils.logging import MetricsLogger, get_logger
 
 log = get_logger(__name__)
@@ -112,15 +124,15 @@ class TrainConfig:
     sample_step: int = 0         # 0 disables the EMA sample grids
     sample_size: int = 25
     save_step: int = 0
-    eval_step: int = 0           # not ported yet: must stay 0
+    eval_step: int = 0           # 0 disables the in-training evaluation
     num_eval_images: int = 50000
     fid_weights: Optional[str] = None
     fid_stats_cache: Optional[str] = None
     metrics_every_iters: int = 100
     resume: bool = False         # restore the latest checkpoint of logdir
     # restore a run by id (a run directory or a name under runs/): its
-    # config.yaml replaces this config and training continues from its
-    # checkpoint; test_id (evaluation only) is not ported yet
+    # config.yaml replaces this config; train_id continues training from
+    # its checkpoint, test_id evaluates it without training
     train_id: str = ""
     test_id: str = ""
     restore_iter: int = 0        # 0 -> the run's latest checkpoint
@@ -208,10 +220,6 @@ def check_config(cfg: Config) -> None:
 def _check_ported(cfg: Config) -> None:
     """Reject what this slice of the port does not implement yet."""
     todo = "is not ported yet (ROADMAP.md, queue A: {})"
-    if cfg.train.eval_step > 0 or cfg.train.test_id:
-        raise NotImplementedError(
-            "FID/IS evaluation (train.eval_step, train.test_id) " + todo
-            .format("evalx/inception.py + evalx/fid.py"))
     p = cfg.parallel
     if max(p.data, p.model, p.spatial, p.num_processes) > 1:
         raise NotImplementedError("parallel.* > 1 " + todo.format(
@@ -250,7 +258,7 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
     ``params``, a ``state_dict`` (for instance from
     ``models.convert.flax_to_state_dict``), replaces the fresh init.
     """
-    _check_ported(cfg)        # before a test_id's run is looked up
+    _check_ported(cfg)        # before a train_id's run is looked up
     cfg = config_lib.restore_run_config(cfg)
     check_config(cfg)
     _check_ported(cfg)        # what a restored run's config asks for
@@ -305,6 +313,13 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
             _log_sample_grids(cfg, model, ema, sch, metrics, device, step,
                               stage.res, stage.spec.n_levels_used,
                               data.shape[-1])
+        if tc.eval_step and step > 0 and step % tc.eval_step == 0:
+            # the EMA at the stage's resolution; seeded by (seed, 20_000 +
+            # step), the JAX trainer's fold_in
+            scores = evaluate(cfg, model, ema, sch, stage.spec.n_levels_used,
+                              stage.res, generator=trainer.seeded_generator(
+                                  device, tc.seed, 20_000 + step))
+            metrics.log({f"eval/{k}": v for k, v in scores.items()}, step)
 
     # a fresh Adam and warmup every stage (main.py:374-377); the EMA covers
     # every trainable parameter, reached or not
@@ -339,11 +354,110 @@ def _log_sample_grids(cfg: Config, model: MultiResUNet,
             imgs, f"res {r}, iter {step}"), step)
 
 
+def draw_x_T(generator: torch.Generator, shape: Tuple[int, ...],
+             device: torch.device, start: int) -> torch.Tensor:
+    """The ``x_T`` of the evaluation batch whose first image is number
+    ``start``, from ``generator``.  ``start`` is not used here; it lets a
+    test put in its place a function that replays another stream."""
+    return torch.randn(shape, generator=generator, device=device)
+
+
+def evaluate(cfg: Config, model: MultiResUNet,
+             ema: Mapping[str, torch.Tensor], sch: diffusion.DDPMSchedule,
+             n_levels_used: int, resolution: int,
+             num_images: Optional[int] = None, batch_size: int = 256, *,
+             generator: torch.Generator) -> Dict[str, float]:
+    """Sample ``num_images`` (default ``train.num_eval_images``) images at
+    ``resolution`` from the parameters ``ema`` with ``cfg``'s sampler, in
+    batches of ``batch_size``, each ``x_T`` from :func:`draw_x_T` on
+    ``generator`` (which the sampler's noise also draws from), and score
+    them (``unet_design_tpu/tasks/diff_cifar.py:499-554``): ``IS`` and
+    ``IS_std``; ``FID``, and ``KID`` / ``KID_std``, against
+    ``train.fid_stats_cache``; ``untrusted_random_inception_weights`` = 1
+    when ``train.fid_weights`` names no ``.pth``."""
+    tc = cfg.train
+    device = next(iter(ema.values())).device
+    num_images = num_images or tc.num_eval_images
+    sampler = make_sampler(cfg, model, sch, n_levels_used, ema)
+    images = []
+    for s in range(0, num_images, batch_size):
+        b = min(batch_size, num_images - s)
+        x_T = draw_x_T(generator, (b, resolution, resolution, 3), device, s)
+        images.append((sampler(x_T, generator=generator).float() + 1.0)
+                      / 2.0)
+    # batch 100: the scores do not depend on it (inference BatchNorm)
+    evaluator = FIDEvaluator(
+        load_fid_params(tc.fid_weights) if tc.fid_weights else None,
+        tc.fid_stats_cache, batch_size=100, device=device)
+    result = evaluator.compute(torch.cat(images))
+    out = {"IS": result["inception_score"][0],
+           "IS_std": result["inception_score"][1]}
+    if "fid" in result:
+        out["FID"] = result["fid"]
+    if "kid" in result:
+        out["KID"], out["KID_std"] = result["kid"]
+    if "warning" in result:
+        log.warning("FID/IS computed with RANDOM Inception weights: %s",
+                    result["warning"])
+        out["untrusted_random_inception_weights"] = 1.0
+    return out
+
+
+def test_eval(cfg: Config) -> Dict[str, float]:
+    """``train.test_id`` (``unet_design_tpu/tasks/diff_cifar.py:557-617``):
+    restore a run's config and its EMA at ``train.restore_iter`` (0: the
+    latest checkpoint) and evaluate it at the last stage's resolution,
+    seeded by ``(seed, 40_000)``, without training.  How to sample and
+    score stays the command line's (``num_eval_images``, ``fid_weights``,
+    ``fid_stats_cache``, ``diffusion.sampler``, ``diffusion.sample_steps``);
+    with the default logdir, the logs go to ``<run>/eval``.  Writes
+    ``eval_scores.json`` and ``eval/`` metrics; returns the scores."""
+    cli = cfg
+    cfg = config_lib.restore_run_config(cfg)
+    if cfg is not cli:
+        cfg.train.num_eval_images = cli.train.num_eval_images
+        cfg.train.fid_weights = cli.train.fid_weights
+        cfg.train.fid_stats_cache = cli.train.fid_stats_cache
+        cfg.diffusion.sampler = cli.diffusion.sampler
+        cfg.diffusion.sample_steps = cli.diffusion.sample_steps
+    run_dir = config_lib.resolve_run_dir(cfg.train.test_id)
+    if cli.train.logdir == TrainConfig().logdir:
+        cfg.train.logdir = os.path.join(run_dir, "eval")
+    check_config(cfg)
+    _check_ported(cfg)
+    device = resolve_device(cfg.device)
+    highest_res = load_data(cfg.data).shape[1]
+    model = build_model(cfg).to(device)
+    sch = diffusion.DDPMSchedule.create(cfg.diffusion.beta_1,
+                                        cfg.diffusion.beta_T,
+                                        cfg.diffusion.T).to(device)
+    src = CheckpointManager(os.path.join(run_dir, "ckpt"))
+    step = cfg.train.restore_iter or src.latest_step()
+    ema = {k: v.to(device) for k, v in src.restore(step)["ema"].items()}
+    log.info("test_eval: restored run %s at step %s", cfg.train.test_id,
+             step)
+    final = trainer.StageSpec.from_schedule(cfg.train.num_iterations_list,
+                                            model.n_levels)[-1]
+    scores = evaluate(cfg, model, ema, sch, final.n_levels_used,
+                      highest_res // 2 ** final.n_downsample,
+                      generator=trainer.seeded_generator(
+                          device, cfg.train.seed, 40_000))
+    metrics = MetricsLogger(cfg.train.logdir)
+    metrics.log({f"eval/{k}": v for k, v in scores.items()}, step or 0)
+    metrics.close()
+    with open(os.path.join(cfg.train.logdir, "eval_scores.json"), "w") as f:
+        json.dump({k: float(v) for k, v in scores.items()}, f, indent=1)
+    return scores
+
+
 def main(argv=None):
     import sys
     cfg = config_lib.parse_cli(Config,
                                argv if argv is not None else sys.argv[1:])
-    train(cfg)
+    if cfg.train.test_id:
+        test_eval(cfg)
+    else:
+        train(cfg)
 
 
 if __name__ == "__main__":

@@ -39,6 +39,7 @@ from unet_design_tpu_torch.process import rollout as rollout_lib
 from unet_design_tpu_torch.train import freezing, schedules, trainer
 from unet_design_tpu_torch.train.checkpoint import CheckpointManager
 from unet_design_tpu_torch.utils.config import parse_cli
+from unet_design_tpu_torch.utils.device import resolve_device
 from unet_design_tpu_torch.utils.logging import MetricsLogger, get_logger
 
 log = get_logger(__name__)
@@ -216,20 +217,6 @@ def _gather_windows(fields: torch.Tensor, idx: torch.Tensor,
     x = fields[idx[:, None], t]
     t = starts[:, None] + (th + tg) + torch.arange(tf, device=fields.device)
     return x, fields[idx[:, None], t]
-
-
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device={name!r} but no CUDA device is "
-                               "available (set device=cpu to run on the CPU)")
-        # fp32 means fp32, as in the JAX reference: cuDNN would otherwise
-        # run fp32 convolutions in TF32
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        log.info("TF32 off: fp32 convolutions and matmuls run in full fp32")
-    return device
 
 
 def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
