@@ -76,14 +76,30 @@ prints no result line); each prints its seconds:
    warmup-cosine; the data path, the epoch list, the trajectory limit and
    the logdir overridden, and the stop / resume flags) for two epochs,
    stopped after the first and resumed, and score its best checkpoint on
-   the test split with ``tasks.eval_pde``; train ``U-FNet2-16m`` and
-   ``FNO-128-8m`` at the Navier-Stokes shapes (synthetic, 128x128,
-   time_history 4, batch 8; 8 trajectories) for 3 steps each and score
-   their latest checkpoints; check finite losses and scores, the JAX
-   registry's parameter counts, each trained model's fp32 forward on the
-   card against the CPU, the two ``SpectralConv2d`` routes against each
-   other at FNO-128-8m's (8, 137, 137, 128), and no Haar launch on this
-   path.
+   the test split with ``tasks.eval_pde``; train ``U-FNet2-16m``,
+   ``FNO-128-8m``, ``Unet2015-64`` and ``UNO-64`` at the Navier-Stokes
+   shapes (synthetic, 128x128, time_history 4, batch 8; 8 trajectories)
+   for 3 steps each (``Unet2015-64`` one step an epoch, validated each,
+   stopped after the first and resumed: its BatchNorm running statistics
+   cross the checkpoint) and score their latest checkpoints; check finite
+   losses and scores, the JAX registry's parameter counts, each trained
+   model's fp32 forward on the card against the CPU (``Unet2015-64`` on
+   its running statistics), the two ``SpectralConv2d`` routes against
+   each other at FNO-128-8m's (8, 137, 137, 128), and no Haar launch on
+   this path;
+9. the conditioned PDE entry point: ``configs/cond_pde_navierstokes2d
+   .yaml`` through ``tasks.cond_pde.main`` (``Unetmod-64`` at hidden 64,
+   scalar buoyancy conditioning, 128x128, batch 8, trajlen 56, Adam 1e-3,
+   MSE, eval_delta_t 4, max_num_steps 5) on synthetic NS-2D trajectories
+   handed over in the opener's ``(u, v, cond)`` form with buoyancy 0.2 /
+   0.35 / 0.5 (32 training, 2 validation: the card's machine has no h5py),
+   2 epochs of 4 steps, each validated (728 one-step windows in 91
+   batches, 2 rollouts of 5 steps); then the conditioned ``FNO-128-16m``
+   for 2 steps; check finite losses, the validation keys and forwards, the
+   JAX registry's parameter counts, each trained model's fp32 forward on
+   the card against the CPU, the two ``CondSpectralConv2d`` routes against
+   each other at the conditioned FNO's (8, 137, 137, 128) with 16 modes,
+   and no Haar launch on this path.
 
 Kernel launches are counted on each training path alone (the count is set
 to 0 just before it and read just after) and printed per path; the
@@ -1111,7 +1127,11 @@ SW_YAML = os.path.join(HERE, "configs", "pde_shallowwater2d_1day.yaml")
 # and 1 vector field; time_history 2 for shallow water, 4 for Navier-Stokes),
 # held against the JAX package by tests/test_torch_pde_zoo.py
 ZOO_PARAMS = {("Unetmod-64", 2): 144260227, ("U-FNet2-16m", 4): 175131139,
-              ("FNO-128-8m", 4): 33721603}
+              ("FNO-128-8m", 4): 33721603, ("Unet2015-64", 4): 31042947,
+              ("UNO-64", 4): 110116451}
+# the conditioned registry's, one frame in, scalar conditioning (held
+# against the JAX package by tests/test_torch_cond_pde.py)
+COND_PARAMS = {"Unetmod-64": 146594499, "FNO-128-16m": 139506307}
 SW_SPLITS = {"train": 4, "valid": 2, "test": 2}
 
 
@@ -1189,6 +1209,40 @@ def _check_scores(tag: str, scores: dict, split: str) -> None:
         raise AssertionError(f"{tag} scores: {scores}")
 
 
+def _unet2015_resumed(cfg):
+    """``Unet2015-64`` for 3 epochs of one step, validated each, stopped
+    after the first and resumed: the running statistics that the
+    checkpoint carries moved from their start, and move on after it."""
+    from unet_design_tpu_torch.tasks import pde
+    from unet_design_tpu_torch.train.checkpoint import CheckpointManager
+    cfg.data.train_cycles = 1             # one step an epoch
+    cfg.train.num_epochs_list = [3]
+    cfg.train.val_every_epochs = 1
+    cfg.train.stop_after_epochs = 1
+    pde.train(cfg)
+    saved = CheckpointManager(os.path.join(
+        cfg.train.logdir, "ckpt_latest")).restore(0)["model"]
+    cfg.train.stop_after_epochs = 0
+    cfg.train.resume = True
+    state = pde.train(cfg)
+    _check_run("Unet2015-64, synthetic 128x128, batch 8, resumed",
+               cfg.train.logdir, 3)
+    final = state.model.state_dict()
+    stats = [k for k in saved if k.endswith(("running_mean", "running_var"))]
+    moved = [float((saved[k] - (k.endswith("var") * 1.0)).abs().max())
+             for k in stats]
+    after = [float((final[k].cpu() - saved[k]).abs().max()) for k in stats]
+    log(f"[zoo] Unet2015-64 BatchNorm statistics: {len(stats)} buffers in "
+        f"the stop's checkpoint, moved from their start by up to "
+        f"{max(moved):.3g}, then by up to {max(after):.3g} in the 2 resumed "
+        f"steps")
+    if (len(stats) != 36 or min(moved) == 0 or max(after) == 0
+            or not all(torch.isfinite(final[k]).all() for k in stats)):
+        raise AssertionError("Unet2015-64: running statistics did not "
+                             "cross the checkpoint")
+    return state
+
+
 def phase_zoo() -> None:
     """Phase 8: the modern U-Net and spectral models through the normal
     entry points (see the module's docstring)."""
@@ -1229,9 +1283,11 @@ def phase_zoo() -> None:
     checked = [(("Unetmod-64", 2), model)]
     _zoo_card_vs_cpu("Unetmod-64", model.cuda(), cfg, (1, 2, 48, 96, 3))
 
-    # (b) the spectral models at the Navier-Stokes shapes, a few steps each,
-    # scored from their latest checkpoints
-    for name in ("U-FNet2-16m", "FNO-128-8m"):
+    # (b) the spectral models, Unet2015 and UNO at the Navier-Stokes shapes,
+    # a few steps each, scored from their latest checkpoints; Unet2015
+    # stopped after its first step and resumed, so its BatchNorm running
+    # statistics cross a checkpoint
+    for name in ("U-FNet2-16m", "FNO-128-8m", "Unet2015-64", "UNO-64"):
         cfg = _slice_config(os.path.join(base, name))
         cfg.model.name = name
         # the trainer passes model.hidden_channels to every registry name
@@ -1245,9 +1301,12 @@ def phase_zoo() -> None:
         cfg.train.freeze_lower_res = False
         cfg.train.stop_after_epochs = 0
         t0 = time.perf_counter()
-        state = pde.train(cfg)
-        _check_run(f"{name}, synthetic 128x128, batch 8", cfg.train.logdir,
-                   1)
+        if name == "Unet2015-64":
+            state = _unet2015_resumed(cfg)
+        else:
+            state = pde.train(cfg)
+            _check_run(f"{name}, synthetic 128x128, batch 8",
+                       cfg.train.logdir, 1)
         scores = eval_pde.evaluate(cfg, "latest", "test")
         _check_scores(f"{name} latest", scores, "test")
         log(f"[zoo] {name}: trained and scored in "
@@ -1280,6 +1339,119 @@ def phase_zoo() -> None:
         f"1e-5 relative)")
     if not torch.isfinite(dft).all() or err > 1e-5 * scale:
         raise AssertionError(f"spectral routes disagree: {err}")
+    shutil.rmtree(base, ignore_errors=True)
+
+
+COND_YAML = os.path.join(HERE, "configs", "cond_pde_navierstokes2d.yaml")
+COND_SPLITS = {"train": 32, "valid": 2}
+BUOYANCY = (0.2, 0.35, 0.5)
+
+
+def _cond_trajectories(n: int, seed: int) -> list:
+    """Synthetic NS-2D trajectories in the opener's ``(u, v, cond)`` form
+    (56 frames of 128x128, 1 scalar and 1 vector field), the buoyancy
+    cycling through 0.2, 0.35, 0.5."""
+    from unet_design_tpu_torch.data import pde as pde_data
+    trajs = pde_data.synthetic_trajectories(
+        n, pde_data.PDEDataConfig(1, 1, 56), res=128, seed=seed)
+    return [(u, v, np.float32(BUOYANCY[i % 3]))
+            for i, (u, v, _) in enumerate(trajs)]
+
+
+def phase_cond() -> None:
+    """Phase 9: ``configs/cond_pde_navierstokes2d.yaml`` through
+    ``tasks.cond_pde.main`` on the card (see the module's docstring)."""
+    from unet_design_tpu_torch.models import common
+    from unet_design_tpu_torch.ops import haar, spectral
+    from unet_design_tpu_torch.tasks import cond_pde
+    from unet_design_tpu_torch.utils.config import parse_cli
+
+    base = os.path.join(HERE, "runs", "chip_smoke_cond")
+    shutil.rmtree(base, ignore_errors=True)
+    t0 = time.perf_counter()
+    splits = {m: _cond_trajectories(n, i)
+              for i, (m, n) in enumerate(COND_SPLITS.items())}
+    log(f"[cond] synthetic NS-2D set {COND_SPLITS} x (56, 128, 128, 1 + 2),"
+        f" buoyancy {BUOYANCY}, made in {time.perf_counter() - t0:.1f} s")
+    haar.launches = 0   # the conditioned path starts here
+
+    runs = [("Unetmod-64", ["train.epochs=2"], splits),
+            # the conditioned FNO: 2 steps (16 trajectories), one epoch
+            ("FNO-128-16m", ["train.epochs=1", "model.name=FNO-128-16m",
+                             "model.hidden_channels=128"],
+             {"train": splits["train"][:16], "valid": splits["valid"]})]
+    for name, extra, openers in runs:
+        logdir = os.path.join(base, name)
+        args = (["--config", COND_YAML, f"train.logdir={logdir}"] + extra)
+        cfg = parse_cli(cond_pde.Config, args)
+        t0 = time.perf_counter()
+        state = cond_pde.main(args, openers=openers)
+        secs = time.perf_counter() - t0
+        records = _records(logdir)
+        get = lambda k: [r[k] for r in records if k in r]
+        losses, steps = get("train/loss_mean"), get("train/steps_per_sec")
+        vals = {k: get(k) for k in ("valid/onestep_loss",
+                                    "valid/unrolled_loss_mean")}
+        vsecs, fwds = get("valid/seconds"), get("valid/forwards")
+        n_ep, n_steps = cfg.train.epochs, len(openers["train"]) // 8
+        log(f"[cond] {name} (scalar buoyancy, 128x128, batch 8, trajlen 56):"
+            f" train/loss_mean {losses}, steps/s {steps}, "
+            f"valid/onestep_loss {vals['valid/onestep_loss']}, "
+            f"valid/unrolled_loss_mean {vals['valid/unrolled_loss_mean']}, "
+            f"validation {vsecs} s for {fwds} forwards each; {state.step} "
+            f"steps in {secs:.1f} s on {card_line()}")
+        want_fwds = (COND_SPLITS["valid"] * 364 // 8
+                     + COND_SPLITS["valid"] * cfg.train.max_num_steps)
+        if (len(losses) != n_ep or state.step != n_ep * n_steps
+                or any(len(v) != n_ep for v in vals.values())
+                or fwds != [want_fwds] * n_ep
+                or not np.isfinite(losses + sum(vals.values(), [])).all()):
+            raise AssertionError(f"{name}: losses {losses}, validation "
+                                 f"{vals}, forwards {fwds}")
+        n = common.param_count(state.model)
+        log(f"[cond] {name}: {n} parameters (JAX registry: "
+            f"{COND_PARAMS[name]})")
+        if n != COND_PARAMS[name]:
+            raise AssertionError(f"{name}: {n} parameters")
+        # the trained model's fp32 forward on the card against the CPU
+        cpu = cond_pde.build_model(cfg)
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             state.model.state_dict().items()})
+        gen = np.random.default_rng(5)
+        x = torch.from_numpy(gen.standard_normal((2, 1, 64, 64, 3)).astype(
+            np.float32))
+        t, z = torch.tensor([1.0, 9.0]), torch.tensor([0.2, 0.5])
+        state.model.eval()
+        with torch.no_grad():
+            out = state.model(x.cuda(), t.cuda(), z.cuda()).cpu()
+            ref = cpu(x, t, z)
+        err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+        log(f"[cond] {name} fp32 forward {tuple(out.shape)} card vs CPU: "
+            f"max abs err {err:.3g} (scale {scale:.3g}, tol 1e-4 relative)")
+        if not torch.isfinite(out).all() or err > 1e-4 * max(scale, 1e-6):
+            raise AssertionError(f"{name}: card forward disagrees: {err}")
+    launches = haar.launches  # the conditioned path ends here
+    log(f"[cond] haar_pyramid launches on the conditioned path: {launches}")
+    if launches != 0:
+        raise AssertionError("the conditioned models have no multi-res "
+                             "targets")
+
+    # both routes of the conditioned spectral conv at the conditioned
+    # FNO's shape, where both apply
+    conv = spectral.CondSpectralConv2d(128, 128, 512, 16, 16)
+    conv.reset_parameters(torch.Generator().manual_seed(0))
+    conv = conv.cuda()
+    gen = torch.Generator("cuda").manual_seed(0)
+    x = torch.randn((8, 128, 137, 137), device="cuda", generator=gen)
+    emb = torch.randn((8, 512), device="cuda", generator=gen)
+    with torch.no_grad():
+        dft, fft = conv(x, emb, route="dft"), conv(x, emb, route="fft")
+    err, scale = float((dft - fft).abs().max()), float(fft.abs().max())
+    log(f"[cond] CondSpectralConv2d (8, 137, 137, 128) m 16 on the card: "
+        f"DFT products vs cuFFT max abs err {err:.3g} (scale {scale:.3g}, "
+        f"tol 1e-5 relative)")
+    if not torch.isfinite(dft).all() or err > 1e-5 * scale:
+        raise AssertionError(f"conditioned spectral routes disagree: {err}")
     shutil.rmtree(base, ignore_errors=True)
 
 
@@ -1326,6 +1498,7 @@ def main() -> int:
     wmh_launches = timed("wmh", phase_wmh)
     timed("wmh-loo", phase_wmh_loo)
     timed("zoo", phase_zoo)
+    timed("cond", phase_cond)
     log(f"[launches] haar_pyramid per path: PDE staged training "
         f"{pde_launches}, DDPM staged training {ddpm_launches}, VP staged "
         f"training {mnist_launches}, WMH staged training {wmh_launches}")

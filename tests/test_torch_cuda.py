@@ -287,7 +287,8 @@ def test_wmh_train_on_the_card(cuda, tmp_path):
     assert len(losses) == 4 and np.isfinite(losses).all()
 
 
-@pytest.mark.parametrize("name", ["Unetmod-64", "U-FNet2-16m", "FNO-128-8m"])
+@pytest.mark.parametrize("name", ["Unetmod-64", "U-FNet2-16m", "FNO-128-8m",
+                                  "Unet2015-64", "UNO-64"])
 def test_zoo_forward_matches_cpu(cuda, name):
     """A full-width zoo model's fp32 forward on the card (TF32 off) within
     1e-4 relative of the same weights on the CPU."""
@@ -323,6 +324,37 @@ def test_spectral_routes_agree_on_the_card(cuda, shape, modes):
     outs, grads = [], []
     for route in ("dft", "fft"):
         y = conv(x, route=route)
+        (gx,) = torch.autograd.grad(y.square().sum(), x)
+        outs.append(y.detach())
+        grads.append(gx)
+    scale = float(outs[1].abs().max())
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-5 * scale
+    gscale = float(grads[1].abs().max())
+    assert float((grads[0] - grads[1]).abs().max()) <= 1e-4 * gscale
+
+
+@pytest.mark.parametrize("kind", ["cond", "uno"])
+def test_cond_and_uno_spectral_routes_agree_on_the_card(cuda, kind):
+    """The conditioned FNO's layer at (8, 137, 137, 128) with 16 modes and
+    UNO-64's first at 128 -> 96 with 18: both routes give the same layer,
+    forward and gradients, at 1e-5 and 1e-4 of the scale."""
+    from unet_design_tpu_torch.ops import spectral
+    from unet_design_tpu_torch.tasks import pde
+    pde.resolve_device("cuda")
+    if kind == "cond":
+        conv = spectral.CondSpectralConv2d(128, 128, 512, 16, 16)
+        x = _x((8, 128, 137, 137), torch.float32, cuda, seed=5)
+        extra = (_x((8, 512), torch.float32, cuda, seed=6),)
+    else:
+        conv = spectral.SpectralConv2dUno(64, 96, 18, 18)
+        x = _x((8, 64, 128, 128), torch.float32, cuda, seed=5)
+        extra = ((96, 96),)
+    conv.reset_parameters(torch.Generator().manual_seed(0))
+    conv.to(cuda)
+    x.requires_grad_(True)
+    outs, grads = [], []
+    for route in ("dft", "fft"):
+        y = conv(x, *extra, route=route)
         (gx,) = torch.autograd.grad(y.square().sum(), x)
         outs.append(y.detach())
         grads.append(gx)

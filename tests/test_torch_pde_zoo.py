@@ -261,9 +261,9 @@ def _shape_tree_matches(name, n_scalar, n_vector, th, tf):
 
 @pytest.mark.parametrize("name", sorted(registry.MODEL_REGISTRY))
 def test_registry_parameters_match_jax(name):
-    """Every ported name (33 of the JAX registry's 37): parameter shapes equal
-    the JAX tree's at the model zoo's field counts, and the count equals
-    docs/modelzoo.md's."""
+    """Every name of the registry (the JAX registry's 37): parameter shapes
+    equal the JAX tree's at the model zoo's field counts, and the count
+    equals docs/modelzoo.md's."""
     n = _shape_tree_matches(name, 1, 1, 4, 1)
     assert round(n / 1e6, 1) == MODELZOO[name]
 
@@ -290,11 +290,9 @@ def test_smoke_parameter_counts_match_jax():
 
 
 def test_registry_names():
-    """33 of the JAX registry's 37 names; only UNO-* and Unet2015-* wait."""
-    missing = set(jregistry.MODEL_REGISTRY) - set(registry.MODEL_REGISTRY)
-    assert len(registry.MODEL_REGISTRY) == 33
-    assert set(registry.MODEL_REGISTRY) <= set(jregistry.MODEL_REGISTRY)
-    assert missing == {"UNO-64", "UNO-128", "Unet2015-64", "Unet2015-128"}
+    """The JAX registry's 37 names, none missing."""
+    assert len(registry.MODEL_REGISTRY) == 37
+    assert set(registry.MODEL_REGISTRY) == set(jregistry.MODEL_REGISTRY)
     for name in registry.MODEL_REGISTRY:
         if name in ("Unetbase-64", "Unetbase-64_G", "Unetbase-128"):
             continue
@@ -318,7 +316,7 @@ def test_class_path_fallback(caplog):
 
 
 @pytest.mark.parametrize("name", [
-    "NotARealModel", "UNO-64",
+    "NotARealModel", "UNO-256",
     "unet_design_tpu_torch.models.modern_unet.Missing",
     "no_such_package.Model"])
 def test_unknown_names_raise(name):

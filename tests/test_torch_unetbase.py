@@ -198,9 +198,10 @@ def test_registry(name):
 
 
 def test_registry_rejects_unported_names():
-    # FNO-128-8m, the name this test first used, is ported now;
-    # UNO-* and Unet2015-* are not yet
-    for name in ("UNO-64", "Unet2015-64"):
+    # every name of the JAX registry is ported now (FNO-128-8m, then UNO-*
+    # and Unet2015-*, were this test's names): names outside it raise
+    for name in ("UNO-256", "Unet2015-32"):
+        assert name not in jregistry.MODEL_REGISTRY
         with pytest.raises(KeyError):
             registry.build_model(name, 1, 1, 4, 1)
 

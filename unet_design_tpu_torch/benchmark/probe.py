@@ -21,14 +21,21 @@ a profiled training run.
 
 4. (``--parts zoo``) Times one forward and one AdamW training step (MSE
    loss) of ``Unetmod-64``, ``Unetmodattn-64``, ``U-FNet2-16m``,
-   ``FNO-128-8m`` and ``DilResNet-128`` at ``bench.py``'s protocol (batch
-   8, (8, 4, 128, 128, 3) fp32, TF32 off) with CUDA events, then profiles
-   5 steps: the device's busy share and device ms by class (by kernel
-   name: convolution, matmul, FFT, group norm, elementwise, copies,
+   ``FNO-128-8m``, ``DilResNet-128``, ``Unet2015-64`` and ``UNO-64`` at
+   ``bench.py``'s protocol (batch 8, (8, 4, 128, 128, 3) fp32, TF32 off),
+   and of the conditioned ``Unetmod-64`` and ``FNO-128-16m`` at
+   ``configs/cond_pde_navierstokes2d.yaml``'s shapes (batch 8, one frame
+   (8, 1, 128, 128, 3), horizon and buoyancy), with CUDA events, then
+   profiles 5 steps: the device's busy share and device ms by class (by
+   kernel name: convolution, matmul, FFT, group norm, elementwise, copies,
    optimizer).  Then times ``SpectralConv2d`` with each route forced at
    the shapes the models run: FNO-128-8m's (8, 137, 137, 128) with 8
    modes, U-FNet2-16m's level 0 (8, 128, 128, 64) with 16 and level 1
-   (8, 64, 64, 128) with 8; forward, and forward with backward.
+   (8, 64, 64, 128) with 8, and ``CondSpectralConv2d`` at the conditioned
+   FNO-128-16m's (8, 137, 137, 128) with 16; forward, and forward with
+   backward.  Last, UNO-64's cubic resize (128 -> 96 and 64 -> 96 at 96
+   channels) as the port's two products and as
+   ``F.interpolate(bicubic, antialias=True)``, which computes the same.
 
 5. (``--parts fid``) Why the FID's Newton-Schulz root is or is not
    finite: for the evaluator's random Inception and for the same network
@@ -308,81 +315,109 @@ def event_ms(fn, iters: int = 200, warmup: int = 20) -> float:
 
 
 ZOO_MODELS = ("Unetmod-64", "Unetmodattn-64", "U-FNet2-16m", "FNO-128-8m",
-              "DilResNet-128")
+              "DilResNet-128", "Unet2015-64", "UNO-64")
+# conditioned models at configs/cond_pde_navierstokes2d.yaml's shapes
+COND_MODELS = ("Unetmod-64", "FNO-128-16m")
 # (where the model runs it, NHWC shape, modes)
 SPECTRAL_SHAPES = (("FNO-128-8m", (8, 137, 137, 128), 8),
                    ("U-FNet2-16m level 0", (8, 128, 128, 64), 16),
                    ("U-FNet2-16m level 1", (8, 64, 64, 128), 8))
 
 
-def zoo(steps: int = 5) -> dict:
-    """Forward and training-step times, busy share and device time by class
-    of the zoo's models, and both spectral routes at their shapes (see the
-    module's docstring)."""
+def _measure(name: str, model: torch.nn.Module, inputs: tuple,
+             y: torch.Tensor, steps: int) -> dict:
+    """Forward and AdamW-step ms (CUDA events), then ``steps`` profiled
+    steps: busy share and device ms by class."""
     from torch.profiler import ProfilerActivity, profile
-    from unet_design_tpu_torch.models import common, registry
-    from unet_design_tpu_torch.ops import blocks
-    from unet_design_tpu_torch.ops.spectral import SpectralConv2d
+    from unet_design_tpu_torch.models import common
     from unet_design_tpu_torch.process import losses
     from unet_design_tpu_torch.train import trainer
-    gen = torch.Generator().manual_seed(0)
-    x = torch.randn((8, 4, 128, 128, 3), generator=gen).cuda()
-    y = torch.randn((8, 1, 128, 128, 3), generator=gen).cuda()
-    models = []
-    for name in ZOO_MODELS:
-        model = registry.build_model(name, 1, 1, time_history=4,
-                                     time_future=1)
-        blocks.flax_default_init_(model, torch.Generator().manual_seed(0))
-        model.cuda()
-        flops = conv_flops(model, x)
-        with torch.no_grad():
-            fwd_ms = event_ms(lambda: model(x), 20, 3)
-        opt = trainer.make_optimizer(model.parameters(), 1e-4, "adamw", 0.01)
+    flops = conv_flops(model, *inputs)
+    with torch.no_grad():
+        fwd_ms = event_ms(lambda: model(*inputs), 20, 3)
+    opt = trainer.make_optimizer(model.parameters(), 1e-4, "adamw", 0.01)
 
-        def step():
-            loss = losses.custom_mse_loss(model(x), y)
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            opt.step()
-        step_ms = event_ms(step, 10, 2)
-        torch.cuda.synchronize()
+    def step():
+        loss = losses.custom_mse_loss(model(*inputs), y)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+    step_ms = event_ms(step, 10, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                step()
-            torch.cuda.synchronize()
-            prof_wall = time.perf_counter() - t0
-        rows, by_class, busy_us = _by_class(prof)
-        models.append({
-            "name": name, "parameters": common.param_count(model),
-            "forward_ms": fwd_ms, "step_ms": step_ms,
-            "forward_conv_flops": flops,
-            "forward_conv_share_of_fp32_peak":
-                flops / (fwd_ms * 1e-3) / FP32_OPS_PER_S,
-            "steps": steps, "steps_wall_seconds": wall,
-            # busy time of the profiled repeat over the timed run's wall
-            "device_busy_share": busy_us / 1e6 / wall,
-            "device_busy_ms_per_step": busy_us / 1e3 / steps,
-            "profiled_wall_seconds": prof_wall,
-            "device_ms_per_step_by_class": {
-                k: v / 1e3 / steps for k, v in sorted(
-                    by_class.items(), key=lambda kv: -kv[1])},
-            "top_kernels": [{"us": d, "count": c, "name": k[:100]}
-                            for d, c, k in rows[:8]]})
-        del model, opt
+        prof_wall = time.perf_counter() - t0
+    rows, by_class, busy_us = _by_class(prof)
+    return {
+        "name": name, "parameters": common.param_count(model),
+        "input_shape": list(inputs[0].shape),
+        "forward_ms": fwd_ms, "step_ms": step_ms,
+        "forward_conv_flops": flops,
+        "forward_conv_share_of_fp32_peak":
+            flops / (fwd_ms * 1e-3) / FP32_OPS_PER_S,
+        "steps": steps, "steps_wall_seconds": wall,
+        # busy time of the profiled repeat over the timed run's wall
+        "device_busy_share": busy_us / 1e6 / wall,
+        "device_busy_ms_per_step": busy_us / 1e3 / steps,
+        "profiled_wall_seconds": prof_wall,
+        "device_ms_per_step_by_class": {
+            k: v / 1e3 / steps for k, v in sorted(
+                by_class.items(), key=lambda kv: -kv[1])},
+        "top_kernels": [{"us": d, "count": c, "name": k[:100]}
+                        for d, c, k in rows[:8]]}
+
+
+def zoo(steps: int = 5) -> dict:
+    """Forward and training-step times, busy share and device time by class
+    of the zoo's models and the conditioned ones, both spectral routes at
+    their shapes, and UNO's cubic resize (see the module's docstring)."""
+    from unet_design_tpu_torch.models import registry
+    from unet_design_tpu_torch.models.uno import CubicResize
+    from unet_design_tpu_torch.ops import blocks
+    from unet_design_tpu_torch.ops.spectral import (CondSpectralConv2d,
+                                                    SpectralConv2d)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((8, 4, 128, 128, 3), generator=gen).cuda()
+    y = torch.randn((8, 1, 128, 128, 3), generator=gen).cuda()
+    models = []
+
+    def run(label, model, inputs):
+        blocks.flax_default_init_(model, torch.Generator().manual_seed(0))
+        model.cuda()
+        models.append(_measure(label, model, inputs, y, steps))
+        del model
         torch.cuda.empty_cache()
+    for name in ZOO_MODELS:
+        run(name, registry.build_model(name, 1, 1, time_history=4,
+                                       time_future=1), (x,))
+    # one frame, the horizon and the buoyancy, scalar conditioning
+    x1 = x[:, :1].contiguous()
+    dt = torch.randint(1, 56, (8,), generator=gen).float().cuda()
+    z = torch.rand((8,), generator=gen).cuda()
+    for name in COND_MODELS:
+        run(f"{name} (conditioned)", registry.build_cond_model(
+            name, 1, 1, 1, 1, param_conditioning="scalar"), (x1, dt, z))
 
     routes = []
-    for where, (b, h, w, c), m in SPECTRAL_SHAPES:
-        conv = SpectralConv2d(c, c, m, m)
+    shapes = SPECTRAL_SHAPES + (("cond FNO-128-16m", (8, 137, 137, 128),
+                                 16),)
+    for where, (b, h, w, c), m in shapes:
+        cond = where.startswith("cond")
+        conv = (CondSpectralConv2d(c, c, 4 * c, m, m) if cond
+                else SpectralConv2d(c, c, m, m))
         conv.reset_parameters(torch.Generator().manual_seed(0))
         conv.cuda()
+        extra = ((torch.randn((b, 4 * c), generator=gen).cuda(),) if cond
+                 else ())
         # the models' layout: NCHW stored channels_last
         xs = torch.randn((b, c, h, w), generator=gen).cuda().contiguous(
             memory_format=torch.channels_last).requires_grad_(True)
@@ -390,15 +425,30 @@ def zoo(steps: int = 5) -> dict:
         for route in ("dft", "fft"):
             def fwd():
                 with torch.no_grad():
-                    return conv(xs, route=route)
+                    return conv(xs, *extra, route=route)
 
             def fwd_bwd():
-                conv(xs, route=route).sum().backward()
+                conv(xs, *extra, route=route).sum().backward()
             rec[route] = {"forward_ms": event_ms(fwd, 20, 3),
                           "forward_device_us": device_us(fwd, 20),
                           "forward_backward_ms": event_ms(fwd_bwd, 10, 2)}
         routes.append(rec)
-    return {"models": models, "spectral_routes": routes}
+
+    # UNO-64's pointwise path at 128x128: (8, 64, 128, 128) -> 96 -> 64
+    resize = []
+    xr = torch.randn((8, 96, 128, 128), generator=gen).cuda().contiguous(
+        memory_format=torch.channels_last)
+    cubic_resize = CubicResize()
+    for hw_in, hw_out in (((128, 128), (96, 96)), ((64, 64), (96, 96))):
+        xi = xr[:, :, :hw_in[0], :hw_in[1]]
+        resize.append({
+            "shape_nchw": list(xi.shape), "out_hw": list(hw_out),
+            "matmul_ms": event_ms(lambda: cubic_resize(xi, hw_out), 50, 5),
+            "library_ms": event_ms(lambda: torch.nn.functional.interpolate(
+                xi, size=hw_out, mode="bicubic", align_corners=False,
+                antialias=True), 50, 5)})
+    return {"models": models, "spectral_routes": routes,
+            "cubic_resize": resize}
 
 
 def device_us(fn, calls: int = 50, attempts: int = 3) -> float:
@@ -562,8 +612,9 @@ def main(argv=None) -> int:
     if "zoo" in parts:
         result["zoo"] = z = zoo()
         for m in z["models"]:
-            print(f"[zoo] {m['name']} ({m['parameters']} parameters) bs8 "
-                  f"(8,4,128,128,3) fp32: forward {m['forward_ms']:.4f} ms, "
+            print(f"[zoo] {m['name']} ({m['parameters']} parameters) "
+                  f"{tuple(m['input_shape'])} fp32: forward "
+                  f"{m['forward_ms']:.4f} ms, "
                   f"AdamW step {m['step_ms']:.4f} ms, device_busy_share "
                   f"{m['device_busy_share']:.4f} (busy "
                   f"{m['device_busy_ms_per_step']:.3f} ms a step; the "
@@ -573,7 +624,8 @@ def main(argv=None) -> int:
                   f"class { {k: round(v, 3) for k, v in m['device_ms_per_step_by_class'].items()} }"
                   f"; card {result['card']}", flush=True)
         for r in z["spectral_routes"]:
-            print(f"[zoo] SpectralConv2d {tuple(r['shape_nhwc'])} m "
+            print(f"[zoo] {'Cond' if r['where'].startswith('cond') else ''}"
+                  f"SpectralConv2d {tuple(r['shape_nhwc'])} m "
                   f"{r['modes']} ({r['where']}): "
                   + "; ".join(f"{k} forward {v['forward_ms']:.4f} ms "
                               f"(device {v['forward_device_us']:.1f} us), "
@@ -581,6 +633,12 @@ def main(argv=None) -> int:
                               f"{v['forward_backward_ms']:.4f} ms"
                               for k, v in r.items() if k in ("dft", "fft"))
                   + f"; card {result['card']}", flush=True)
+        for r in z["cubic_resize"]:
+            print(f"[zoo] cubic resize {tuple(r['shape_nchw'])} -> "
+                  f"{tuple(r['out_hw'])}: two matmuls {r['matmul_ms']:.4f} "
+                  f"ms, F.interpolate(bicubic, antialias) "
+                  f"{r['library_ms']:.4f} ms; card {result['card']}",
+                  flush=True)
     if "fid" in parts:
         result["fid_rank"] = rows = fid_rank()
         for r in rows:

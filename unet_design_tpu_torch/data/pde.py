@@ -1,10 +1,15 @@
-"""PDE trajectory data: openers, RAM and disk caches, synthetic trajectories.
+"""PDE trajectory data: openers, RAM and disk caches, synthetic trajectories,
+the time-conditioned windows.
 
-Main-path subset of ``unet_design_tpu/data/pde.py``, kept free of JAX.  The
-trainer stacks a whole split into one ``(N, T, H, W, C)`` array
-(:meth:`CachedOpener.stacked_fields`), moves it to the device once and
-gathers training windows there.  ``h5py`` (NS-2D) and ``xarray`` (SW-2D
-``.zarr``) are imported only where a file is read.
+Subset of ``unet_design_tpu/data/pde.py``, kept free of JAX.  The trainers
+stack a whole split into one ``(N, T, H, W, C)`` array
+(:meth:`CachedOpener.stacked_fields`), move it to the device once and
+gather windows there; for the conditioned trainer,
+:func:`time_conditioned_pairs` and :func:`conditioned_eval_pairs` give the
+(trajectory, start, end) of the windows that JAX's time-conditioned
+generators yield, in their order, in place of the generators.
+``h5py`` (NS-2D) and ``xarray`` (SW-2D ``.zarr``) are imported only where
+a file is read.
 
 Frames are NHWC: u (T, H, W, n_scalar), v (T, H, W, 2 * n_vector).
 """
@@ -34,6 +39,56 @@ class PDEDataConfig:
 def max_start_time(trajlen: int, time_history: int, time_future: int,
                    time_gap: int) -> int:
     return trajlen - time_history - time_future - time_gap
+
+
+def _conditioned_pair(rng: np.random.Generator, trajlen: int,
+                      reweigh: bool):
+    """One draw of (start, end): ``end ~ U[1, trajlen)``, ``start`` in
+    ``[0, end)`` weighted ``1 / (end - start)`` toward long horizons."""
+    end = int(rng.integers(1, trajlen))
+    if reweigh:
+        w = 1.0 / np.arange(1, end + 1)
+        start = int(rng.choice(np.arange(0, end), p=w / w.sum()))
+    else:
+        start = int(rng.integers(0, end))
+    return start, end
+
+
+def time_conditioned_pairs(n_traj: int, trajlen: int, seed: int = 0,
+                           reweigh: bool = True,
+                           cycles: Optional[int] = None) -> np.ndarray:
+    """``(3, n)`` int array of (trajectory, start, end): the windows of
+    JAX's ``random_time_conditioned_windows`` (``RandomTimeStepConditioned
+    PDETrainData``, ``common.py:148-208``) over ``n_traj`` trajectories, in
+    its order and from the same numpy stream: ``cycles`` passes, one pair
+    per trajectory."""
+    rng = np.random.default_rng(seed)
+    cycles = trajlen if cycles is None else cycles
+    rows = [(i, *_conditioned_pair(rng, trajlen, reweigh))
+            for _ in range(cycles) for i in range(n_traj)]
+    return np.asarray(rows, np.int64).reshape(-1, 3).T
+
+
+def _check_eval_delta_t(trajlen: int, delta_t: int) -> None:
+    if 2 * delta_t >= trajlen:
+        raise ValueError("delta_t should be less than half the trajlen")
+
+
+def conditioned_eval_pairs(n_traj: int, n_frames: int, trajlen: int,
+                           delta_t: int) -> np.ndarray:
+    """``(3, n)`` int array of (trajectory, start frame, end frame): the
+    windows of JAX's ``timestep_conditioned_eval_windows``
+    (``TimestepConditionedPDEEvalData``, ``common.py:211-248``) over
+    ``n_traj`` trajectories of ``n_frames`` frames, in its order: for each
+    offset ``begin < trajlen - delta_t``, each trajectory's consecutive
+    pairs of its frames ``begin::delta_t``."""
+    _check_eval_delta_t(trajlen, delta_t)
+    rows = []
+    for begin in range(trajlen - delta_t):
+        frames = range(begin, n_frames, delta_t)
+        for i in range(n_traj):
+            rows.extend((i, a, b) for a, b in zip(frames, frames[1:]))
+    return np.asarray(rows, np.int64).reshape(-1, 3).T
 
 
 class NavierStokesOpener:

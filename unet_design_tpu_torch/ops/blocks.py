@@ -500,8 +500,10 @@ def flax_default_init_(module: nn.Module,
     """Re-initialise ``module`` the way flax initialises its counterpart:
     conv and dense kernels LeCun-normal (variance ``1/fan_in``, truncated at
     two standard deviations) or zero where the layer's ``zero_init`` says
-    so, biases zero, GroupNorm scales one, spectral weights uniform in
-    ``[0, 1 / (C_in C_out))``."""
+    so, biases zero, GroupNorm scales one, spectral layers by their own
+    ``reset_parameters`` (flax's init of each).  Norms with their own
+    parameters (UNO's instance norm, Unet2015's BatchNorm) start at flax's
+    values when built."""
     for m in module.modules():
         if isinstance(m, SpectralConv2d):
             m.reset_parameters(generator)

@@ -1,10 +1,10 @@
 """Sinusoidal time embeddings.
 
-Port of three styles of ``unet_design_tpu/ops/embeddings.py``: the DDPM
-interleaved one (``diff_cifar/model.py:14-43``), the OpenAI ``[cos | sin]``
-one of the diff_mnist U-Nets and the fairseq ``[sin | cos]`` one of its MLP
-score network (``torch_ddpm/ddpm/models``); pdearena's Fourier conditioning
-waits for its slice.  All compute in fp32.
+Port of ``unet_design_tpu/ops/embeddings.py``: the DDPM interleaved style
+(``diff_cifar/model.py:14-43``), the OpenAI ``[cos | sin]`` one of the
+diff_mnist U-Nets, the fairseq ``[sin | cos]`` one of its MLP score network
+(``torch_ddpm/ddpm/models``) and pdearena's Fourier conditioning, which is
+the OpenAI formula under its own name.  All compute in fp32.
 """
 
 from __future__ import annotations
@@ -52,11 +52,8 @@ def fairseq_timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
     return emb
 
 
-def openai_timestep_embedding(t: torch.Tensor, dim: int,
-                              max_period: float = 10000.0) -> torch.Tensor:
-    """``[cos | sin]`` embedding of the OpenAI U-Nets
-    (``unet_design_tpu/ops/embeddings.py:48-58``); ``t`` may be fractional;
-    an odd ``dim`` gets a zero column.  ``(B,) -> (B, dim)``."""
+def _cos_sin_embedding(t: torch.Tensor, dim: int,
+                       max_period: float) -> torch.Tensor:
     half = dim // 2
     args = t.float()[:, None] * _freqs(half, half, max_period,
                                        t.device)[None, :]
@@ -64,3 +61,20 @@ def openai_timestep_embedding(t: torch.Tensor, dim: int,
     if dim % 2:
         emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
     return emb
+
+
+def openai_timestep_embedding(t: torch.Tensor, dim: int,
+                              max_period: float = 10000.0) -> torch.Tensor:
+    """``[cos | sin]`` embedding of the OpenAI U-Nets
+    (``unet_design_tpu/ops/embeddings.py:48-58``); ``t`` may be fractional;
+    an odd ``dim`` gets a zero column.  ``(B,) -> (B, dim)``."""
+    return _cos_sin_embedding(t, dim, max_period)
+
+
+def fourier_embedding(t: torch.Tensor, dim: int,
+                      max_period: float = 10000.0) -> torch.Tensor:
+    """``[cos | sin]`` embedding of the conditioned PDE models' timestep
+    and scalar parameter (``unet_design_tpu/ops/embeddings.py:61-76``,
+    pdearena ``conditioned/condition_utils.py:17-36``): the same formula as
+    :func:`openai_timestep_embedding`.  ``(B,) -> (B, dim)``."""
+    return _cos_sin_embedding(t, dim, max_period)

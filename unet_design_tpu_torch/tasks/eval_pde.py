@@ -7,8 +7,9 @@ reference's ``trainer.test(ckpt_path="best")`` after fit
 that ``tasks/pde.py`` wrote, puts the split on the device, and reports the
 one-step and unrolled-rollout losses with bootstrap statistics, through the
 trainer's own ``validate_device`` at full resolution (a ``_G`` model with
-all its levels).  The JSON has the JAX script's keys: ``valid/`` renamed
-to ``<split>/``, plus ``checkpoint_step``.
+all its levels; a BatchNorm model on the running statistics that its
+checkpoint carries).  The JSON has the JAX script's keys: ``valid/``
+renamed to ``<split>/``, plus ``checkpoint_step``.
 
     python -m unet_design_tpu_torch.tasks.eval_pde --config <yaml> \\
         [key=value ...] [--ckpt best|latest] [--split test] [--out path]

@@ -12,7 +12,10 @@ gathered there from a numpy-seeded stream of (trajectory, start) pairs,
 the same stream the JAX trainer draws, so both see identical batches.
 With ``train.use_pallas_haar`` (the JAX name, kept so its configs load;
 default on here) the multi-res targets come from the CUDA Haar-pyramid
-kernel (``ops/haar.py``).
+kernel (``ops/haar.py``).  A model with BatchNorm (``Unet2015``) steps in
+training mode and validates on its running statistics, which the
+checkpoints carry as buffers of its ``state_dict`` (the JAX trainer's
+``model_state``, ``pde.py:276, 367-413, 437-442, 577-588``).
 
 Run: ``python -m unet_design_tpu_torch.tasks.pde --config <yaml> [k=v ...]``.
 """
