@@ -12,9 +12,11 @@ prints no result line); each prints its seconds:
    shapes, the VP path's one-channel MNIST shapes, in bf16, off a 16-byte
    boundary and where the plan splits the width, and the multi-res targets
    of the three paths through it, and the WMH stage downsample's shapes
-   (image (32, 200, 200, 2) and mask (32, 200, 200, 1) at L4, L3, L2);
-   time it at (8, 128, 128, 3) L4, the three CIFAR shapes, the three MNIST
-   shapes and the six WMH shapes beside its bound, the
+   (image (32, 200, 200, 2) and mask (32, 200, 200, 1) at L4, L3, L2),
+   and the streamed shallow-water ``Unetbase-64_G``'s (16, 96, 192, 3) L4
+   (phase 11); time it at (8, 128, 128, 3) L4, (16, 96, 192, 3) L4, the
+   three CIFAR shapes, the three MNIST shapes and the six WMH shapes
+   beside its bound, the
    plain version, the ``F.avg_pool2d`` chain (kernel and chain in turns)
    and an empty kernel on the same grid (the launch floor);
 3. train ``Unetbase-64_G`` at full width (hidden 64, 128x128, batch 8) with
@@ -68,10 +70,10 @@ prints no result line); each prints its seconds:
    slices at 200x200), patient 0 held out, one epoch at batch 32, with
    ``seg_unet`` (hidden 16) and the legacy 64-512 net: finite challenge
    metrics, timed;
-8. the rest of the PDE model zoo through the normal entry points: write a
-   synthetic shallow-water set in the ``ShallowWaterOpener`` npz schema
-   (88 frames of 96x192, 4 training, 2 validation and 2 test
-   trajectories), train ``configs/pde_shallowwater2d_1day.yaml`` with
+8. the rest of the PDE model zoo through the normal entry points, after
+   phase 10 (which generates its data): on the shallow-water set that
+   phase 10 wrote (88 frames of 96x192, 4 training, 2 validation and 2
+   test trajectories), train ``configs/pde_shallowwater2d_1day.yaml`` with
    ``tasks.pde.main`` (``Unetmod-64`` at hidden 64, batch 16, AdamW with
    warmup-cosine; the data path, the epoch list, the trajectory limit and
    the logdir overridden, and the stop / resume flags) for two epochs,
@@ -99,11 +101,37 @@ prints no result line); each prints its seconds:
    JAX registry's parameter counts, each trained model's fp32 forward on
    the card against the CPU, the two ``CondSpectralConv2d`` routes against
    each other at the conditioned FNO's (8, 137, 137, 128) with 16 modes,
-   and no Haar launch on this path.
+   and no Haar launch on this path;
+10. data generation on the card, run before phase 8, each solver timed
+   (seconds and trajectories/s): Navier-Stokes at the Table-1 settings
+   (128x128, nt 56, sample_rate 4: 14 frames; a batch of 8), the last
+   frame's spectral divergence (on the amplitude spectrum) below 1e-3 /
+   256 of the velocity scale (the JAX test's bound, 1e-3 on the
+   unnormalised spectrum at 16x16) and 1e-4 of the terms that cancel in
+   it, the fields finite, the smoke above -1, and the same start stepped
+   4 steps on the card and the CPU within 1e-4 of each field's scale; shallow water at the real grid (96x192, 88 frames)
+   through ``generate_trajectories_shallowwater``, writing phase 8's set
+   (``SW_SPLITS``) with its ``normstats.npz``, each trajectory's per-frame
+   vorticity std within 0.2-5x of frame 0; Maxwell at the defaults (64^3
+   simulated, 32^3 saved, 250 + 12 x 15 steps, a batch of 4), div H
+   within 1e-5 of |H|, every frame finite and nonzero, and 30 steps from
+   the same numpy sources on the card and the CPU within 1e-4 (h5py need
+   not be installed beside the card: the Navier-Stokes and Maxwell fields
+   are checked in memory, their HDF5 writers in the CPU tests);
+11. the host-streaming path: the shallow-water yaml's ``Unetmod-64``
+   (batch 16) for two epochs on the generated set staged on the card, with
+   the validation split streamed (``data.device_cache_max_bytes`` between
+   the training set's size and both splits') and with both streamed
+   (``data.device_cache=false``), then ``Unetbase-64_G`` with the DWT
+   encoder and the multi-res loss staged and streamed; each arm's steps/s
+   printed beside the staged arm's, the streamed losses within 1e-4 of the
+   staged ones (the same windows), and the Haar kernel launched once a
+   step on the streamed ``Unetbase-64_G`` path.
 
 Kernel launches are counted on each training path alone (the count is set
 to 0 just before it and read just after) and printed per path; the
-kernels' JSON record carries their sum.  The line before the last is
+kernels' JSON record carries their sum, phase 11's streamed path among
+them.  The line before the last is
 ``nvidia-smi``'s name and power limit; the one before that, the kernels'
 JSON record; the last line, ``{"ok": true, "device": {...}}``.  Imports
 nothing of JAX.
@@ -226,7 +254,8 @@ def phase_kernel(device) -> dict:
              ((32, 200, 200, 2), 2, torch.float32, 0),
              ((32, 200, 200, 1), 4, torch.float32, 0),
              ((32, 200, 200, 1), 3, torch.float32, 0),
-             ((32, 200, 200, 1), 2, torch.float32, 0)]
+             ((32, 200, 200, 1), 2, torch.float32, 0),
+             ((16, 96, 192, 3), 4, torch.float32, 0)]
     max_err = 0.0
     for shape, n_levels, dtype, misalign in cases:
         x = rand(shape, dtype, misalign)
@@ -303,9 +332,11 @@ def phase_kernel(device) -> dict:
             raise AssertionError(f"WMH stage downsample {shape}: {err}")
 
     # timing: the PDE path's largest call, then the DDPM path's three, the
-    # VP path's three and the WMH image's and mask's three
+    # VP path's three, the WMH image's and mask's three and the streamed
+    # shallow-water Unetbase-64_G's (phase 11)
     main = time_pyramid(haar, rand((8, 128, 128, 3)), 4)
-    for shape, n_levels in (((128, 32, 32, 3), 4), ((128, 16, 16, 3), 3),
+    for shape, n_levels in (((16, 96, 192, 3), 4),
+                            ((128, 32, 32, 3), 4), ((128, 16, 16, 3), 3),
                             ((128, 8, 8, 3), 2), ((128, 64, 64, 1), 4),
                             ((128, 32, 32, 1), 3), ((128, 16, 16, 1), 2),
                             ((32, 200, 200, 2), 4), ((32, 200, 200, 2), 3),
@@ -1135,32 +1166,6 @@ COND_PARAMS = {"Unetmod-64": 146594499, "FNO-128-16m": 139506307}
 SW_SPLITS = {"train": 4, "valid": 2, "test": 2}
 
 
-def _write_shallow_water(root: str, seed: int = 0) -> None:
-    """Trajectories in the ``ShallowWaterOpener`` npz schema at the
-    solver's save cadence (``u`` (88, 96, 192, 1) vorticity, ``v`` (88, 96,
-    192, 2) wind; the yaml's opener keeps frames ``[4::4]``), drifting
-    smooth random fields made with numpy, and their ``normstats.npz``."""
-    rng = np.random.default_rng(seed)
-    os.makedirs(root)
-    y, x = np.meshgrid(np.linspace(0, 2 * np.pi, 96, endpoint=False),
-                       np.linspace(0, 4 * np.pi, 192, endpoint=False),
-                       indexing="ij")
-    t = np.arange(88, dtype=np.float32)[:, None, None, None] / 88
-    for split, n in SW_SPLITS.items():
-        for i in range(n):
-            k = rng.integers(1, 4, size=(3, 2))
-            phase = rng.uniform(0, 2 * np.pi, size=3)
-            base = np.stack([np.sin(a * y + b * x + p) for (a, b), p in
-                             zip(k, phase)], axis=-1)[None].astype(np.float32)
-            noise = 0.1 * rng.standard_normal((88, 96, 192, 3)).astype(
-                np.float32)
-            f = np.cos(2 * np.pi * t) * base + noise
-            np.savez(os.path.join(root, f"{split}_{i}.npz"),
-                     u=3e-5 * f[..., :1] + 1e-5, v=10.0 * f[..., 1:])
-    np.savez(os.path.join(root, "normstats.npz"), vor_mean=np.float32(1e-5),
-             vor_std=np.float32(3e-5))
-
-
 def _records(logdir: str) -> list:
     with open(os.path.join(logdir, "metrics.jsonl")) as f:
         return [json.loads(l) for l in f]
@@ -1243,9 +1248,10 @@ def _unet2015_resumed(cfg):
     return state
 
 
-def phase_zoo() -> None:
+def phase_zoo(data: str) -> None:
     """Phase 8: the modern U-Net and spectral models through the normal
-    entry points (see the module's docstring)."""
+    entry points, on the shallow-water set that phase 10 generated in
+    ``data`` (see the module's docstring)."""
     from unet_design_tpu_torch.models import common, registry
     from unet_design_tpu_torch.ops import haar, spectral
     from unet_design_tpu_torch.tasks import eval_pde, pde
@@ -1253,11 +1259,6 @@ def phase_zoo() -> None:
 
     base = os.path.join(HERE, "runs", "chip_smoke_zoo")
     shutil.rmtree(base, ignore_errors=True)
-    data = os.path.join(base, "sw")
-    t0 = time.perf_counter()
-    _write_shallow_water(data)
-    log(f"[zoo] shallow-water set {SW_SPLITS} x (88, 96, 192, 1 + 2) "
-        f"written in {time.perf_counter() - t0:.1f} s")
     haar.launches = 0   # the zoo path starts here
 
     # (a) the shallow-water yaml end to end: two epochs, stopped after the
@@ -1455,6 +1456,235 @@ def phase_cond() -> None:
     shutil.rmtree(base, ignore_errors=True)
 
 
+SMOKE_DATA = os.path.join(HERE, "runs", "chip_smoke_data")
+NS_BATCH = 8
+MX_BATCH = 4
+CARD_CPU_TOL = 1e-4
+
+
+def _synced(fn, *args, **kw):
+    """``fn(*args, **kw)`` and its seconds, the card synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _card_vs_cpu(tag: str, names: tuple, card, cpu) -> None:
+    """Fields stepped on the card within ``CARD_CPU_TOL`` of each one's
+    scale of the same start stepped on the CPU."""
+    for name, a, b in zip(names, card, cpu, strict=True):
+        err, scale = float((a.cpu() - b).abs().max()), float(b.abs().max())
+        log(f"[datagen] {tag} field {name} card vs CPU: max abs err "
+            f"{err:.3g} (scale {scale:.3g}, tol {CARD_CPU_TOL} relative)")
+        if not torch.isfinite(a).all() or err > CARD_CPU_TOL * scale:
+            raise AssertionError(f"{tag}: card disagrees with CPU: {err}")
+
+
+def _datagen_ns() -> None:
+    """Navier-Stokes at the Table-1 settings (``run_table1_ns2d.sh:51-52``:
+    128x128, nt 56, sample_rate 4, 14 frames), a batch of 8."""
+    import dataclasses
+    from unet_design_tpu_torch.datagen import navier_stokes as ns
+    from unet_design_tpu_torch.datagen.pde_configs import NavierStokes2D
+    pde = NavierStokes2D(nx=128, ny=128, nt=56, sample_rate=4)
+    noise = torch.stack([ns.draw_noise(ns.trajectory_generator(0, "train", i),
+                                       pde.nx, pde.ny)
+                         for i in range(NS_BATCH)])
+    n = pde.nx
+    grid = ns.Grid(n, n, "cuda")
+    init = ns.initial_state(noise.to("cuda"), pde)
+    warm = dataclasses.replace(pde, nt=4, tmax=4 * pde.dt)
+    ns.simulate(*init, warm)                              # warm-up
+    (u, vx, vy), secs = _synced(ns.simulate, *init, pde)
+    # the last frame's divergence k . v^ on the amplitude spectrum
+    # (fft2 / (nx ny), in the velocity's units) against the velocity
+    # scale, at the JAX test's bound in these units: 1e-3 of the scale on
+    # the unnormalised spectrum at its 16x16 grid is 1e-3 / 256 here.
+    # (Unnormalised at 128x128 the fp32 rounding of the sums, which grows
+    # with nx ny, reads ~1e-3.)  And against the terms that cancel in it.
+    div_tol = 1e-3 / (16 * 16)
+    tx = grid.kx * torch.fft.fft2(vx[:, -1], norm="forward")
+    ty = grid.ky * torch.fft.fft2(vy[:, -1], norm="forward")
+    div = (tx + ty).abs().amax((-2, -1))
+    vscale = vx[:, -1].abs().amax((-2, -1)).clamp(min=1.0)
+    rel = float((div / vscale).max())
+    cancel = float((div / (tx.abs() + ty.abs()).amax((-2, -1))).max())
+    log(f"[datagen] NS-2D: {NS_BATCH} trajectories of "
+        f"{tuple(u.shape[1:])} ({pde.nt} steps) in {secs:.3f} s"
+        f", {NS_BATCH / secs:.2f} trajectories/s on {card_line()}; last "
+        f"frame's spectral divergence / velocity scale max {rel:.3g} "
+        f"(tol {div_tol:.3g}), / its terms {cancel:.3g} (tol 1e-4), smoke "
+        f"min {float(u.min()):.3g}")
+    if (not all(torch.isfinite(f).all() for f in (u, vx, vy))
+            or rel >= div_tol or cancel >= 1e-4
+            or float(u.min()) <= -1.0
+            or u.shape != (NS_BATCH, pde.trajlen, n, n)):
+        raise AssertionError("NS-2D: invariants fail")
+    # the same start on the card and the CPU, 4 steps of the Table-1 dt
+    short = dataclasses.replace(pde, nt=4, tmax=4 * pde.dt, sample_rate=1)
+    card = ns.simulate(*ns.initial_state(noise[:2].to("cuda"), short), short)
+    cpu = ns.simulate(*ns.initial_state(noise[:2], short), short)
+    _card_vs_cpu(f"NS-2D, 4 steps at {n}x{n}", ("smoke", "vx", "vy"), card,
+                 cpu)
+
+
+def _datagen_sw(data: str) -> None:
+    """Shallow water at the real grid (96x192, 88 frames) through the
+    generator: the npz set phase 8 trains on, with its normstats."""
+    from unet_design_tpu_torch.datagen import shallow_water as sw
+    from unet_design_tpu_torch.datagen.pde_configs import ShallowWaterWeather
+    pde = ShallowWaterWeather()
+    substeps, dt = sw.substeps_and_dt(pde)
+    for mode, n in SW_SPLITS.items():
+        paths, secs = _synced(sw.generate_trajectories_shallowwater, pde,
+                              mode, n, batch_size=4, dirname=data, seed=0,
+                              device="cuda")
+        ratios = []
+        for p in paths:
+            vor = np.load(p)["u"][..., 0]
+            std = vor.reshape(len(vor), -1).std(axis=1)
+            ratios.append((float((std / std[0]).min()),
+                           float((std / std[0]).max())))
+            if (vor.shape != (pde.nt, pde.nx, pde.ny)
+                    or not np.isfinite(vor).all()
+                    or not 0.2 < ratios[-1][0] <= ratios[-1][1] < 5):
+                raise AssertionError(f"shallow water {p}: {ratios[-1]}")
+        log(f"[datagen] shallow water {mode}: {n} trajectories of {pde.nt} "
+            f"frames at {pde.nx}x{pde.ny} ({substeps} RK4 steps of {dt:.5f} a "
+            f"frame) written "
+            f"in {secs:.2f} s, {n / secs:.3f} trajectories/s on "
+            f"{card_line()}; per-frame vorticity std / frame 0 within "
+            f"{min(r[0] for r in ratios):.3f}-{max(r[1] for r in ratios):.3f}"
+            f" (tol 0.2-5)")
+    stats = np.load(os.path.join(data, "normstats.npz"))
+    log(f"[datagen] shallow water normstats (train): vor_mean "
+        f"{float(stats['vor_mean']):.4g}, vor_std {float(stats['vor_std']):.4g}")
+    if not (np.isfinite(stats["vor_mean"]) and stats["vor_std"] > 0):
+        raise AssertionError("shallow-water normstats")
+
+
+def _datagen_maxwell() -> None:
+    """Maxwell at the defaults: 64^3 simulated, 32^3 saved, 250 + 12 x 15
+    steps, a batch of 4."""
+    import dataclasses
+    from unet_design_tpu_torch.datagen import maxwell
+    from unet_design_tpu_torch.datagen.pde_configs import Maxwell3D
+    pde = Maxwell3D()
+    srcs = maxwell.trajectory_sources(pde, "train", MX_BATCH, 0)
+    maxwell.simulate(maxwell.stack_sources(srcs, "cuda"),
+                     dataclasses.replace(pde, skip_nt=2, nt=1,
+                                         sample_rate=1))       # warm-up
+    (d, h), secs = _synced(maxwell.simulate,
+                           maxwell.stack_sources(srcs, "cuda"), pde)
+    hh, m = h[:, -1], pde.nx - 1      # div H inside the saved crop
+    div = sum((hh[..., a].narrow(a + 1, 1, m) - hh[..., a].narrow(a + 1, 0,
+                                                                  m))
+              [:, :m, :m, :m] for a in range(3))
+    rel = float(div.abs().max()) / float(hh.abs().max())
+    frames_min = float(torch.minimum(d.abs().amax((2, 3, 4, 5)),
+                                     h.abs().amax((2, 3, 4, 5))).min())
+    n_steps = pde.skip_nt + pde.nt * pde.sample_rate
+    log(f"[datagen] Maxwell: {MX_BATCH} trajectories of {tuple(d.shape[1:])}"
+        f" ({n_steps} steps at {pde.n_large}^3) in {secs:.3f} s, "
+        f"{MX_BATCH / secs:.2f} trajectories/s on {card_line()}; div H / "
+        f"|H| max {rel:.3g} (tol 1e-5), smallest frame max |field| "
+        f"{frames_min:.3g}")
+    if (not (torch.isfinite(d).all() and torch.isfinite(h).all())
+            or rel >= 1e-5 or frames_min <= 0):
+        raise AssertionError("Maxwell: invariants fail")
+    short = dataclasses.replace(pde, skip_nt=20, nt=2, sample_rate=5)
+    _card_vs_cpu(f"Maxwell 30 steps at {pde.n_large}^3", ("E", "H"),
+                 maxwell.simulate(maxwell.stack_sources(srcs[:1], "cuda"),
+                                  short),
+                 maxwell.simulate(maxwell.stack_sources(srcs[:1], "cpu"),
+                                  short))
+
+
+def phase_datagen() -> str:
+    """Phase 10: the three solvers on the card at the sizes users run (see
+    the module's docstring); returns the shallow-water set's directory."""
+    shutil.rmtree(SMOKE_DATA, ignore_errors=True)
+    data = os.path.join(SMOKE_DATA, "sw")
+    _datagen_ns()
+    _datagen_sw(data)
+    _datagen_maxwell()
+    return data
+
+
+def _stream_arm(tag: str, args: list, extra: list) -> dict:
+    from unet_design_tpu_torch.tasks import pde
+    logdir = os.path.join(SMOKE_DATA, "runs", tag)
+    t0 = time.perf_counter()
+    pde.main(args + extra + [f"train.logdir={logdir}"])
+    secs = time.perf_counter() - t0
+    records = _records(logdir)
+    out = {k: [r[k] for r in records if k in r]
+           for k in ("train/loss_mean", "train/steps_per_sec",
+                     "valid/loss/mse", "valid/unrolled_loss_mean")}
+    log(f"[stream] {tag}: steps/s {out['train/steps_per_sec']}, "
+        f"train/loss_mean {out['train/loss_mean']}, valid/loss/mse "
+        f"{out['valid/loss/mse']}, valid/unrolled_loss_mean "
+        f"{out['valid/unrolled_loss_mean']}; {secs:.1f} s on {card_line()}")
+    if not all(len(v) == 2 and np.isfinite(v).all() for v in out.values()):
+        raise AssertionError(f"{tag}: {out}")
+    return out
+
+
+def _same_as_staged(tag: str, got: dict, ref: dict) -> None:
+    """A streamed arm sees the staged arm's windows: its losses within
+    1e-4 relative (cuDNN's backward sums in another order from run to
+    run)."""
+    for k in ("train/loss_mean", "valid/loss/mse",
+              "valid/unrolled_loss_mean"):
+        err = max(abs(a - b) / abs(b) for a, b in zip(got[k], ref[k]))
+        log(f"[stream] {tag} vs staged {k}: max relative gap {err:.3g} "
+            f"(tol 1e-4)")
+        if err > 1e-4:
+            raise AssertionError(f"{tag}: {k} {got[k]} vs {ref[k]}")
+
+
+def phase_stream(data: str) -> int:
+    """Phase 11: the shallow-water yaml's model on the generated set staged,
+    with the valid split streamed and with both streamed, and the streamed
+    ``Unetbase-64_G`` with its multi-res targets through the Haar kernel;
+    returns that arm's launches."""
+    from unet_design_tpu_torch.ops import haar
+    from unet_design_tpu_torch.tasks import pde
+    from unet_design_tpu_torch.utils.config import parse_cli
+    args = ["--config", SW_YAML, f"data.data_path={data}",
+            "train.num_epochs_list=[2]",
+            f"data.limit_trajectories={SW_SPLITS['train']}"]
+    cfg = parse_cli(pde.Config, args)
+    train_o, valid_o = pde.open_splits(cfg.data)
+    tb, vb = (o.stacked_fields().nbytes for o in (train_o, valid_o))
+    log(f"[stream] staged sizes: train {tb} B, valid {vb} B")
+    arms = {"staged": [],
+            "valid streamed": [f"data.device_cache_max_bytes={tb + vb // 2}"],
+            "both streamed": ["data.device_cache=false"]}
+    out = {tag: _stream_arm(f"Unetmod-64 {tag}", args, extra)
+           for tag, extra in arms.items()}
+    for tag in ("valid streamed", "both streamed"):
+        _same_as_staged(f"Unetmod-64 {tag}", out[tag], out["staged"])
+    g_args = args + ["model.name=Unetbase-64_G", "model.hidden_channels=64",
+                     "model.dwt_encoder=true", "model.multi_res_loss=true"]
+    ref = _stream_arm("Unetbase-64_G staged", g_args, [])
+    n_steps = (SW_SPLITS["train"] * cfg.data.trajlen
+               // cfg.data.batch_size) * 2
+    haar.launches = 0   # the streamed path starts here
+    got = _stream_arm("Unetbase-64_G both streamed", g_args,
+                      ["data.device_cache=false"])
+    launches = haar.launches  # the streamed path ends here
+    _same_as_staged("Unetbase-64_G both streamed", got, ref)
+    log(f"[stream] haar_pyramid launches on the streamed Unetbase-64_G path:"
+        f" {launches} ({n_steps} steps)")
+    if launches != n_steps:
+        raise AssertionError(f"expected one launch per step, got {launches}")
+    shutil.rmtree(SMOKE_DATA, ignore_errors=True)
+    return launches
+
+
 def phase_forward(device) -> None:
     from unet_design_tpu_torch.models import registry
     from unet_design_tpu_torch.ops import blocks
@@ -1497,13 +1727,16 @@ def main() -> int:
     mnist_launches = timed("mnist", phase_mnist)
     wmh_launches = timed("wmh", phase_wmh)
     timed("wmh-loo", phase_wmh_loo)
-    timed("zoo", phase_zoo)
+    sw_data = timed("datagen", phase_datagen)
+    timed("zoo", phase_zoo, sw_data)
     timed("cond", phase_cond)
+    stream_launches = timed("stream", phase_stream, sw_data)
     log(f"[launches] haar_pyramid per path: PDE staged training "
         f"{pde_launches}, DDPM staged training {ddpm_launches}, VP staged "
-        f"training {mnist_launches}, WMH staged training {wmh_launches}")
+        f"training {mnist_launches}, WMH staged training {wmh_launches}, "
+        f"PDE streamed training {stream_launches}")
     record["launches"] = (pde_launches + ddpm_launches + mnist_launches
-                          + wmh_launches)
+                          + wmh_launches + stream_launches)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [record]}))
     print(card_line())

@@ -212,9 +212,7 @@ def test_unknown_config_key_raises():
 
 
 @pytest.mark.parametrize("override", ["model.use_bf16=true",
-                                      "model.remat=true", "parallel.data=2",
-                                      "data.device_cache=false",
-                                      "data.cache_in_memory=false"])
+                                      "model.remat=true", "parallel.data=2"])
 def test_unported_options_raise(tmp_path, override):
     cfg = tconfig.parse_cli(tpde.Config, [override, "device=cpu",
                                           f"train.logdir={tmp_path}"])

@@ -168,6 +168,60 @@ def test_spectral_routes_agree(shape, modes):
                                **OP_TOL)
 
 
+# (shape (B, L, C), modes, route): the JAX rule m <= L // 2; L 16 with the
+# Nyquist bin kept on the FFT route, odd L
+SPECTRAL_1D = [((2, 16, 3), 5, "dft"), ((2, 16, 3), 9, "fft"),
+               ((1, 15, 2), 7, "dft"), ((1, 15, 2), 8, "fft")]
+
+
+@pytest.mark.parametrize("shape,modes,route", SPECTRAL_1D)
+def test_spectral_conv1d(shape, modes, route):
+    x = _x(shape, 11)
+    tm = spectral.SpectralConv1d(shape[-1], 4, modes)
+    assert tm.route(shape[1]) == route
+    jm = jspectral.SpectralConv1d(4, modes)
+    params = random_params(jm, x)
+    convert.load_flax_params(tm, params)
+    ref = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
+    out = tm(torch.from_numpy(x).transpose(1, 2)).transpose(1, 2)
+    np.testing.assert_allclose(out.detach().numpy(), ref, **OP_TOL)
+
+
+# (shape (B, D, H, W, C), modes, route): the JAX rule 2 m1 <= D, 2 m2 <= H,
+# m3 <= W // 2; corners that overlap on D, the Nyquist column kept on W
+SPECTRAL_3D = [((1, 8, 8, 8, 2), (2, 2, 3), "dft"),
+               ((2, 6, 8, 10, 2), (3, 2, 4), "dft"),
+               ((1, 6, 6, 6, 2), (4, 2, 3), "fft"),
+               ((1, 4, 6, 8, 1), (2, 2, 5), "fft")]
+
+
+@pytest.mark.parametrize("shape,modes,route", SPECTRAL_3D)
+def test_spectral_conv3d(shape, modes, route):
+    x = _x(shape, 12)
+    tm = spectral.SpectralConv3d(shape[-1], 3, *modes)
+    assert tm.route(*shape[1:4]) == route
+    jm = jspectral.SpectralConv3d(3, *modes)
+    params = random_params(jm, x)
+    convert.load_flax_params(tm, params)
+    ref = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
+    out = tm(torch.from_numpy(x).permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4,
+                                                                 1)
+    np.testing.assert_allclose(out.detach().numpy(), ref, **OP_TOL)
+
+
+def test_spectral_1d_3d_routes_agree():
+    """Where both routes apply, the DFT products equal the FFT route."""
+    gen = torch.Generator().manual_seed(2)
+    for tm, shape in ((spectral.SpectralConv1d(3, 2, 5), (2, 3, 16)),
+                      (spectral.SpectralConv3d(2, 2, 2, 3, 4),
+                       (1, 2, 6, 8, 10))):
+        tm.reset_parameters(gen)
+        x = torch.randn(shape, generator=gen)
+        np.testing.assert_allclose(tm(x, route="dft").detach().numpy(),
+                                   tm(x, route="fft").detach().numpy(),
+                                   **OP_TOL)
+
+
 def test_spectral_dtype_and_gradients():
     """fp32 inside whatever the input dtype; gradients reach the weights
     and the input on both routes."""

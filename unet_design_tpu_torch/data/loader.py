@@ -1,5 +1,6 @@
 """Host-side data utilities (``epoch_batches``, ``infinite_batches``,
-``shard_for_process`` of ``unet_design_tpu/data/loader.py``).  The batch
+``shard_for_process`` of ``unet_design_tpu/data/loader.py``) and
+:func:`to_device`, the host-to-device copy of a streamed batch.  The batch
 streams are numpy and seeded, so the port and the JAX package draw the
 same batches."""
 
@@ -9,6 +10,7 @@ import itertools
 from typing import Any, Iterator, Optional, Sequence
 
 import numpy as np
+import torch
 
 
 def epoch_batches(arrays: Sequence[np.ndarray], batch_size: int,
@@ -57,3 +59,18 @@ def shard_for_process(items: Sequence[Any], process_index: int = 0,
     reference's per-rank file split (``datapipes/shallowwater2d.py:68-87``).
     The port runs one process until data parallelism is ported."""
     return list(itertools.islice(items, process_index, None, process_count))
+
+
+def to_device(arrays: Sequence[np.ndarray], device: torch.device) -> tuple:
+    """Host arrays as tensors on ``device``.  To a GPU each goes through a
+    pinned buffer (PyTorch's caching host allocator, which keeps a buffer
+    until its copy is done) with a ``non_blocking`` copy, so the copy is
+    queued behind the work already on the stream and the host goes on to
+    the next batch."""
+    out = []
+    for a in arrays:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out.append(t.to(device))
+    return tuple(out)

@@ -1,15 +1,18 @@
 """PDE trajectory data: openers, RAM and disk caches, synthetic trajectories,
-the time-conditioned windows.
+the host window streams and the time-conditioned windows.
 
 Subset of ``unet_design_tpu/data/pde.py``, kept free of JAX.  The trainers
-stack a whole split into one ``(N, T, H, W, C)`` array
+stack a split that fits the device into one ``(N, T, H, W, C)`` array
 (:meth:`CachedOpener.stacked_fields`), move it to the device once and
-gather windows there; for the conditioned trainer,
-:func:`time_conditioned_pairs` and :func:`conditioned_eval_pairs` give the
-(trajectory, start, end) of the windows that JAX's time-conditioned
-generators yield, in their order, in place of the generators.
-``h5py`` (NS-2D) and ``xarray`` (SW-2D ``.zarr``) are imported only where
-a file is read.
+gather windows there; a split that does not fit streams from the host
+through :func:`randomized_train_windows` / :func:`eval_timestep_windows` /
+:func:`rollout_eval_trajectories` and :func:`batched_windows`, which yield
+the windows that the device path gathers, in the same order.  For the
+conditioned trainer, :func:`time_conditioned_pairs` and
+:func:`conditioned_eval_pairs` give the (trajectory, start, end) of the
+windows that JAX's time-conditioned generators yield, in their order, in
+place of the generators.  ``h5py`` (NS-2D) and ``xarray`` (SW-2D
+``.zarr``) are imported only where a file is read.
 
 Frames are NHWC: u (T, H, W, n_scalar), v (T, H, W, 2 * n_vector).
 """
@@ -21,7 +24,7 @@ import glob
 import hashlib
 import logging
 import os
-from typing import List, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -39,6 +42,92 @@ class PDEDataConfig:
 def max_start_time(trajlen: int, time_history: int, time_future: int,
                    time_gap: int) -> int:
     return trajlen - time_history - time_future - time_gap
+
+
+def create_data2d(n_input_scalar: int, n_input_vector: int,
+                  n_output_scalar: int, n_output_vector: int,
+                  scalar_fields: Optional[np.ndarray],
+                  vector_fields: Optional[np.ndarray],
+                  start: int, time_history: int, time_future: int,
+                  time_gap: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Slice one trajectory into (input, target) (``data/utils.py:17-71``):
+    ``scalar_fields (T, H, W, n_scalar)``, ``vector_fields (T, H, W, 2
+    n_vector)`` -> ``(1, time_history, H, W, C_in)``, ``(1, time_future,
+    H, W, C_out)``."""
+    if not (n_input_scalar > 0 or n_input_vector > 0) or time_history <= 0:
+        raise ValueError("a window needs input fields and a history")
+    end = start + time_history
+    tstart = end + time_gap
+    tend = tstart + time_future
+    parts_in, parts_out = [], []
+    if n_input_scalar > 0:
+        parts_in.append(scalar_fields[start:end, ..., :n_input_scalar])
+    if n_input_vector > 0:
+        parts_in.append(vector_fields[start:end, ..., :n_input_vector * 2])
+    if n_output_scalar > 0:
+        parts_out.append(scalar_fields[tstart:tend, ..., :n_output_scalar])
+    if n_output_vector > 0:
+        parts_out.append(vector_fields[tstart:tend, ..., :n_output_vector * 2])
+    data = np.concatenate(parts_in, axis=-1)[None]
+    targets = np.concatenate(parts_out, axis=-1)[None]
+    if targets.shape[-1] == 0:
+        raise ValueError("No targets")
+    return data, targets
+
+
+def _window(pde: PDEDataConfig, u, v, start: int, th: int, tf: int,
+            tg: int):
+    ns, nv = pde.n_scalar_components, pde.n_vector_components
+    return create_data2d(ns, nv, ns, nv, u, v, start, th, tf, tg)
+
+
+def randomized_train_windows(opener, pde: PDEDataConfig, time_history: int,
+                             time_future: int, time_gap: int,
+                             seed: int = 0, cycles: Optional[int] = None
+                             ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """RandomizedPDETrainData (``datapipes/common.py:251-319``): ``cycles``
+    passes over the opener (default ``trajlen``), one window per
+    trajectory visit, its start one scalar ``rng.integers(0, mst + 1)`` of
+    ``default_rng(seed)``: the stream the device path draws at once."""
+    rng = np.random.default_rng(seed)
+    cycles = pde.trajlen if cycles is None else cycles
+    mst = max_start_time(pde.trajlen, time_history, time_future, time_gap)
+    for _ in range(cycles):
+        for (u, v, _) in opener:
+            start = int(rng.integers(0, mst + 1))
+            yield _window(pde, u, v, start, time_history, time_future,
+                          time_gap)
+
+
+def eval_timestep_windows(opener, pde: PDEDataConfig, time_history: int,
+                          time_future: int, time_gap: int
+                          ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """PDEEvalTimeStepData (``datapipes/common.py:322-392``): the windows at
+    starts ``0, tf + tg, ...``, start-major, trajectory-minor."""
+    mst = max_start_time(pde.trajlen, time_history, time_future, time_gap)
+    for start in range(0, mst + 1, time_gap + time_future):
+        for (u, v, _) in opener:
+            yield _window(pde, u, v, start, time_history, time_future,
+                          time_gap)
+
+
+def rollout_eval_trajectories(opener) -> Iterator[Tuple[np.ndarray, ...]]:
+    """Whole trajectories for the rollout validation."""
+    for (u, v, cond) in opener:
+        yield u, v, cond
+
+
+def batched_windows(window_iter, batch_size: int
+                    ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Concatenate windows into batches of ``batch_size``; a partial tail
+    batch is dropped."""
+    xs, ys = [], []
+    for x, y in window_iter:
+        xs.append(x)
+        ys.append(y)
+        if len(xs) == batch_size:
+            yield np.concatenate(xs), np.concatenate(ys)
+            xs, ys = [], []
 
 
 def _conditioned_pair(rng: np.random.Generator, trajlen: int,

@@ -37,6 +37,7 @@ JAX tables round the unreduced fp32 angle, about 3e-5 rad off at N = 137).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -115,11 +116,14 @@ def mode_mix_ri(xr: torch.Tensor, xi: torch.Tensor, w: torch.Tensor
     """Complex channel mixing per mode as one real contraction
     (``_mode_mix_ri``, ``spectral.py:164-184``): ``[re | im] = [xr | xi]``
     times the block matrix ``[[wr, wi], [-wi, wr]]``.  ``xr, xi (B, C_in,
-    X, Y)``, ``w (C_in, C_out, X, Y, 2)`` -> two ``(B, C_out, X, Y)``."""
+    *modes)``, ``w (C_in, C_out, *modes, 2)`` -> two ``(B, C_out,
+    *modes)``, for 1, 2 or 3 mode axes."""
     wr, wi = w[..., 0], w[..., 1]
     wblk = torch.cat([torch.cat([wr, wi], dim=1),
                       torch.cat([-wi, wr], dim=1)], dim=0)
-    out = torch.einsum("bixy,ioxy->boxy", torch.cat([xr, xi], dim=1), wblk)
+    m = "xyz"[:xr.dim() - 2]
+    out = torch.einsum(f"bi{m},io{m}->bo{m}", torch.cat([xr, xi], dim=1),
+                       wblk)
     o = out.shape[1] // 2
     return out[:, :o], out[:, o:]
 
@@ -152,15 +156,29 @@ def fft_route(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
                       device=x.device)
     out[:, :, :m1, :m2] = torch.complex(tr, ti)
     out[:, :, -m1:, :m2] = torch.complex(br, bi)
-    # irfft2 as pocketfft computes it: the H axis inverted as complex, then
-    # a 1D C2R over W whose DC (and Nyquist) bins are made real first
-    out = torch.fft.ifft(out, dim=2)
-    real_bins = torch.ones(d2 // 2 + 1, device=x.device)
-    real_bins[0] = 0.0
-    if d2 % 2 == 0:
-        real_bins[d2 // 2] = 0.0
-    out = torch.complex(out.real, out.imag * real_bins)
-    return torch.fft.irfft(out, n=d2, dim=3)
+    return irfftn(out, d2, 2)
+
+
+def irfftn(x: torch.Tensor, w: int, ndim: int) -> torch.Tensor:
+    """``irfftn`` over the last ``ndim`` axes of a half spectrum ``(...,
+    w // 2 + 1)`` as pocketfft computes it: the leading axes inverted as
+    complex, then a 1D C2R over the last whose DC (and Nyquist) bins are
+    made real first, so a spectrum that is not Hermitian there gives the
+    same field on every device."""
+    if ndim > 1:
+        x = torch.fft.ifftn(x, dim=tuple(range(-ndim, -1)))
+    x = torch.complex(x.real, x.imag * _real_bins(w, x.device))
+    return torch.fft.irfft(x, n=w, dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _real_bins(w: int, device: torch.device) -> torch.Tensor:
+    """0 at the DC and Nyquist bins of a length-``w`` C2R, 1 elsewhere."""
+    bins = np.ones(w // 2 + 1, np.float32)
+    bins[0] = 0.0
+    if w % 2 == 0:
+        bins[w // 2] = 0.0
+    return torch.as_tensor(bins, device=device)
 
 
 class SpectralConv2d(nn.Module):
@@ -303,3 +321,153 @@ class SpectralConv2dUno(SpectralConv2d):
         else:
             raise ValueError(f"route {route!r}")
         return (y * (d1 * d2)).to(x.dtype)
+
+
+def _tables(cache: Dict[tuple, tuple], n: int, m: int, corners: bool,
+            device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 cos / sin tables ``(n, 2 m)`` of the rows ``0..m-1, n-m..n-1``
+    (``corners``) or ``(n, m)`` of ``0..m-1``, cached in ``cache``."""
+    key = (n, m, corners, str(device))
+    if key not in cache:
+        c, s = dft_mats(n, corner_rows(n, m) if corners else np.arange(m))
+        cache[key] = tuple(torch.as_tensor(a, dtype=torch.float32,
+                                           device=device) for a in (c, s))
+    return cache[key]
+
+
+def _c2r_scale(m: int, device) -> torch.Tensor:
+    """The C2R weights ``[1, 2, 2, ...]`` of ``m`` kept columns."""
+    return torch.tensor([1.0] + [2.0] * (m - 1), device=device)
+
+
+class SpectralConv1d(nn.Module):
+    """1D Fourier layer (``spectral.py:108-152``, pdearena
+    ``fourier.py:28-69``): ``(B, C_in, L)`` -> ``(B, C_out, L)``, keeping
+    ``modes`` frequencies; the DFT products where ``modes <= L // 2``
+    (the JAX rule), ``torch.fft`` otherwise.  Weights ``(C_in, C_out,
+    modes, 2)`` named ``weights``."""
+
+    def __init__(self, in_channels: int, out_channels: int, modes: int):
+        super().__init__()
+        self.modes = modes
+        self.weights = nn.Parameter(torch.empty(in_channels, out_channels,
+                                                modes, 2))
+        self._tables: Dict[tuple, tuple] = {}
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """flax's init: ``U[0, 1) / (C_in C_out)``."""
+        c_in, c_out = self.weights.shape[:2]
+        self.weights.uniform_(0.0, 1.0 / (c_in * c_out), generator=generator)
+
+    def route(self, n: int) -> str:
+        return "dft" if self.modes <= n // 2 else "fft"
+
+    def forward(self, x: torch.Tensor, route: Optional[str] = None
+                ) -> torch.Tensor:
+        n, m = x.shape[-1], self.modes
+        route = route or self.route(n)
+        xf = x.float()
+        if route == "dft":
+            cw, sw = _tables(self._tables, n, m, False, x.device)
+            re, im = mode_mix_ri(xf @ cw, -(xf @ sw), self.weights)
+            scale = _c2r_scale(m, x.device)
+            y = ((re * scale) @ cw.T - (im * scale) @ sw.T) / n
+        elif route == "fft":
+            x_ft = torch.fft.rfft(xf, dim=-1)[..., :m]
+            re, im = mode_mix(x_ft, self.weights)
+            out = torch.zeros((x.shape[0], re.shape[1], n // 2 + 1),
+                              dtype=x_ft.dtype, device=x.device)
+            out[..., :m] = torch.complex(re, im)
+            y = irfftn(out, n, 1)
+        else:
+            raise ValueError(f"route {route!r}")
+        return y.to(x.dtype)
+
+
+class SpectralConv3d(nn.Module):
+    """3D Fourier layer (``spectral.py:187-320``, pdearena
+    ``fourier.py:125-190``): ``(B, C_in, D, H, W)`` -> ``(B, C_out, D, H,
+    W)``, keeping ``modes1`` / ``modes2`` frequencies of each sign on D / H
+    and ``modes3`` on the half-spectrum W axis, with a weight per
+    (D-sign, H-sign) corner: ``weights1`` (+, +), ``weights2`` (-, +),
+    ``weights3`` (+, -), ``weights4`` (-, -), each ``(C_in, C_out, m1, m2,
+    m3, 2)``.  The DFT products where ``2 m1 <= D``, ``2 m2 <= H`` and
+    ``m3 <= W // 2`` (the JAX rule), ``torch.fft`` otherwise (corners
+    written in weight order, a later one winning where they overlap)."""
+
+    def __init__(self, in_channels: int, out_channels: int, modes1: int,
+                 modes2: int, modes3: int):
+        super().__init__()
+        self.modes = (modes1, modes2, modes3)
+        shape = (in_channels, out_channels, modes1, modes2, modes3, 2)
+        self.weights1, self.weights2, self.weights3, self.weights4 = (
+            nn.Parameter(torch.empty(shape)) for _ in range(4))
+        self._tables: Dict[tuple, tuple] = {}
+        self.reset_parameters()
+
+    def corner_weights(self):
+        return (self.weights1, self.weights2, self.weights3, self.weights4)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """flax's init: ``U[0, 1) / (C_in C_out)``."""
+        c_in, c_out = self.weights1.shape[:2]
+        for w in self.corner_weights():
+            w.uniform_(0.0, 1.0 / (c_in * c_out), generator=generator)
+
+    def route(self, d: int, h: int, w: int) -> str:
+        m1, m2, m3 = self.modes
+        return "dft" if 2 * m1 <= d and 2 * m2 <= h and m3 <= w // 2 \
+            else "fft"
+
+    def forward(self, x: torch.Tensor, route: Optional[str] = None
+                ) -> torch.Tensor:
+        d, h, w = x.shape[-3:]
+        m1, m2, m3 = self.modes
+        route = route or self.route(d, h, w)
+        xf = x.float()
+        w1, w2, w3, w4 = self.corner_weights()
+        if route == "dft":
+            y = self._dft(xf, torch.cat([torch.cat([w1, w3], dim=3),
+                                         torch.cat([w2, w4], dim=3)], dim=2))
+        elif route == "fft":
+            x_ft = torch.fft.rfftn(xf, dim=(-3, -2, -1))
+            out = torch.zeros((x.shape[0], w1.shape[1], d, h, w // 2 + 1),
+                              dtype=x_ft.dtype, device=x.device)
+            top, bot = slice(None, m1), slice(-m1, None)
+            left, right = slice(None, m2), slice(-m2, None)
+            for wgt, (s1, s2) in zip((w1, w2, w3, w4), (
+                    (top, left), (bot, left), (top, right), (bot, right))):
+                re, im = mode_mix(x_ft[:, :, s1, s2, :m3], wgt)
+                out[:, :, s1, s2, :m3] = torch.complex(re, im)
+            y = irfftn(out, w, 3)
+        else:
+            raise ValueError(f"route {route!r}")
+        return y.to(x.dtype)
+
+    def _dft(self, x: torch.Tensor, w_grid: torch.Tensor) -> torch.Tensor:
+        """The corner modes of ``rfftn`` as products with truncated DFT
+        tables (W, then H, then D), mixed, and inverted from them alone (D,
+        then H, then W), as ``_trunc_rfft3`` / ``_trunc_irfft3``."""
+        d, h, w = x.shape[-3:]
+        m1, m2, m3 = self.modes
+        dev = x.device
+        cw, sw = _tables(self._tables, w, m3, False, dev)
+        ch, sh = _tables(self._tables, h, m2, True, dev)
+        cd, sd = _tables(self._tables, d, m1, True, dev)
+        tr, ti = x @ cw, -(x @ sw)                       # (B, C, D, H, m3)
+        for eq, cn, sn in (("bcdhl,hk->bcdkl", ch, sh),
+                           ("bcdhl,dk->bckhl", cd, sd)):
+            tr, ti = (torch.einsum(eq, tr, cn) + torch.einsum(eq, ti, sn),
+                      torch.einsum(eq, ti, cn) - torch.einsum(eq, tr, sn))
+        tr, ti = mode_mix_ri(tr, ti, w_grid)
+        for eq, cn, sn, n in (("bckhl,dk->bcdhl", cd, sd, d),
+                              ("bcdkl,hk->bcdhl", ch, sh, h)):
+            tr, ti = ((torch.einsum(eq, tr, cn) - torch.einsum(eq, ti, sn))
+                      / n,
+                      (torch.einsum(eq, ti, cn) + torch.einsum(eq, tr, sn))
+                      / n)
+        scale = _c2r_scale(m3, dev)
+        return ((tr * scale) @ cw.T - (ti * scale) @ sw.T) / w

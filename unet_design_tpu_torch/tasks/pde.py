@@ -1,15 +1,22 @@
 """PDE surrogate training (Navier-Stokes 2D / shallow water 2D) on one GPU.
 
-Port of ``unet_design_tpu/tasks/pde.py`` on its device-resident path
-(``train`` :248-617, ``validate_device`` :697-757): epoch-staged sequential
-training (``find_cur_stage``), freezing of the lower-resolution levels, DWT
+Port of ``unet_design_tpu/tasks/pde.py`` (``train``, ``validate``,
+``validate_device``): epoch-staged sequential training
+(``find_cur_stage``), freezing of the lower-resolution levels, DWT
 downsampling of inputs and multi-resolution targets, Adam/AdamW with the
 per-step warmup-cosine schedule, one-step and rollout validation with
 bootstrap statistics, best-val and full-state checkpoints, resume.
 
-The training set is moved to the device once; each step's windows are
-gathered there from a numpy-seeded stream of (trajectory, start) pairs,
-the same stream the JAX trainer draws, so both see identical batches.
+The splits are staged as the JAX trainer stages them (:func:`stage_splits`,
+``pde.py:301-322``): the training set goes to the device if it fits under
+``data.device_cache_max_bytes``, the validation set too if both fit, and a
+split that is not staged streams from the host.  On the device, each
+step's windows are gathered from a numpy-seeded stream of (trajectory,
+start) pairs; from the host, :func:`data.pde.randomized_train_windows`
+yields the same windows from the same stream (the JAX streaming loop
+ignores ``train.shuffle_trajectory_order``, and so does this one) and each
+batch is copied through pinned memory.  Both paths see the JAX trainer's
+batches.
 With ``train.use_pallas_haar`` (the JAX name, kept so its configs load;
 default on here) the multi-res targets come from the CUDA Haar-pyramid
 kernel (``ops/haar.py``).  A model with BatchNorm (``Unet2015``) steps in
@@ -25,7 +32,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Dict, List, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -87,8 +94,12 @@ class DataConfig:
     # windows drawn per trajectory per epoch; None = trajlen (the reference
     # datapipe's cycle(trajlen))
     train_cycles: Optional[int] = None
-    cache_in_memory: bool = True     # must stay True (device-resident path)
-    device_cache: bool = True        # must stay True (device-resident path)
+    # read each trajectory file once and serve the arrays afterwards; false
+    # re-reads the files every epoch (and stages nothing on the device)
+    cache_in_memory: bool = True
+    # stage the training set on the device if it fits device_cache_max_bytes
+    # (and the validation set if both fit); what is not staged streams
+    device_cache: bool = True
     device_cache_max_bytes: int = 8_000_000_000
 
 
@@ -117,6 +128,9 @@ class TrainConfig:
     # chunks the JAX trainer's scanned epoch; accepted with no effect here
     # (eager steps are not scanned)
     max_scan_steps: int = 0
+    # permute the trajectory visits of a staged train set; a streamed one
+    # keeps the opener's order (the JAX streaming loop ignores the flag),
+    # with a warning
     shuffle_trajectory_order: bool = False
     logdir: str = "runs/pde"
 
@@ -143,11 +157,6 @@ def _check_ported(cfg: Config) -> None:
     if max(p.data, p.model, p.spatial, p.num_processes) > 1:
         raise NotImplementedError("parallel.* > 1 " + todo.format(
             "data parallelism"))
-    if not (cfg.data.device_cache and cfg.data.cache_in_memory):
-        raise NotImplementedError(
-            "data.device_cache=false / cache_in_memory=false: the "
-            "host-streaming path " + todo.format(
-                "validate()/randomized_train_windows"))
 
 
 def pde_config(cfg: DataConfig) -> pde_data.PDEDataConfig:
@@ -187,6 +196,56 @@ def open_trajectories(cfg: DataConfig, mode: str):
                                                pde_config(cfg),
                                                res=cfg.resolution)
     raise ValueError(cfg.task)
+
+
+def count_trajectories(opener) -> int:
+    """Trajectories in a split, for the schedule's steps per epoch."""
+    if hasattr(opener, "n_trajectories"):
+        return opener.n_trajectories()
+    return len(opener)
+
+
+def open_splits(cfg: DataConfig):
+    """The train and valid openers; with ``cache_in_memory``, read once and
+    kept in RAM (and in the stacked disk cache with ``stacked_cache``)."""
+    train_opener = open_trajectories(cfg, "train")
+    valid_opener = open_trajectories(cfg, "valid")
+    if cfg.cache_in_memory:
+        cdir = stack_cache_dir(cfg)
+        ns = cfg.n_scalar_components
+        train_opener = pde_data.cached_opener(train_opener, ns, cdir)
+        valid_opener = pde_data.cached_opener(valid_opener, ns, cdir)
+    return train_opener, valid_opener
+
+
+def stage_splits(cfg: DataConfig, train_opener, valid_opener,
+                 device: torch.device
+                 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """JAX's staging policy (``pde.py:301-322``): with ``device_cache`` and
+    an opener that can stack its split (``cache_in_memory``), the training
+    set goes to ``device`` if it fits ``device_cache_max_bytes``, and the
+    validation set too if both fit together.  Returns the staged
+    ``(N, T, H, W, C)`` tensors, None for a split that streams."""
+    if not (cfg.device_cache and hasattr(train_opener, "stacked_fields")):
+        log.info("Train and valid sets stream from the host")
+        return None, None
+    stacked = train_opener.stacked_fields()
+    if stacked.nbytes > cfg.device_cache_max_bytes:
+        log.warning("device_cache disabled: %.2f GB > max %.2f GB",
+                    stacked.nbytes / 1e9, cfg.device_cache_max_bytes / 1e9)
+        return None, None
+    fields = torch.from_numpy(stacked).to(device)
+    log.info("Train set on %s: %s (%.2f GB)", device, tuple(stacked.shape),
+             stacked.nbytes / 1e9)
+    vstacked = valid_opener.stacked_fields()
+    if stacked.nbytes + vstacked.nbytes > cfg.device_cache_max_bytes:
+        log.info("Valid set streams from the host: train + valid %.2f GB "
+                 "> max %.2f GB", (stacked.nbytes + vstacked.nbytes) / 1e9,
+                 cfg.device_cache_max_bytes / 1e9)
+        return fields, None
+    log.info("Valid set on %s: %s (%.2f GB)", device, tuple(vstacked.shape),
+             vstacked.nbytes / 1e9)
+    return fields, torch.from_numpy(vstacked).to(device)
 
 
 def stack_cache_dir(cfg: DataConfig) -> Optional[str]:
@@ -257,31 +316,20 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
     cycles = (cfg.data.train_cycles if cfg.data.train_cycles is not None
               else pde.trajlen)
 
-    cdir = stack_cache_dir(cfg.data)
-    ns = pde.n_scalar_components
-    train_opener = pde_data.cached_opener(
-        open_trajectories(cfg.data, "train"), ns, cdir)
-    valid_opener = pde_data.cached_opener(
-        open_trajectories(cfg.data, "valid"), ns, cdir)
-    stacked = train_opener.stacked_fields()
-    vstacked = valid_opener.stacked_fields()
-    if stacked.nbytes + vstacked.nbytes > cfg.data.device_cache_max_bytes:
-        raise NotImplementedError(
-            f"train+valid sets ({(stacked.nbytes + vstacked.nbytes) / 1e9:.2f}"
-            " GB) exceed data.device_cache_max_bytes: the host-streaming "
-            "path is not ported yet (ROADMAP.md, queue A)")
-    fields_dev = torch.from_numpy(stacked).to(device)
-    valid_fields_dev = torch.from_numpy(vstacked).to(device)
-    log.info("Train / valid sets on %s: %s, %s (%.2f GB)", device,
-             tuple(stacked.shape), tuple(vstacked.shape),
-             (stacked.nbytes + vstacked.nbytes) / 1e9)
-    del stacked, vstacked
+    train_opener, valid_opener = open_splits(cfg.data)
+    fields_dev, valid_fields_dev = stage_splits(cfg.data, train_opener,
+                                                valid_opener, device)
+    if fields_dev is None and cfg.train.shuffle_trajectory_order:
+        log.warning("train.shuffle_trajectory_order is ignored: the train "
+                    "set streams from the host, in the opener's order, as "
+                    "the JAX streaming loop does; batches differ from a "
+                    "staged run's")
 
     schedule = None
     if cfg.train.warmup_epochs > 0:
         # evaluated per optimizer step, as optax does; the reference steps
         # its scheduler per epoch, hence steps_per_epoch
-        n_windows = train_opener.n_trajectories() * cycles
+        n_windows = count_trajectories(train_opener) * cycles
         schedule = schedules.linear_warmup_cosine_annealing(
             cfg.train.lr, cfg.train.warmup_epochs,
             cfg.train.scheduler_max_epochs or n_epochs_total,
@@ -362,24 +410,8 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
                 y = wavelet.haar_downsample_traj(y, nd)
             return criterion(pred, y)
 
-        # ---- train epoch: the JAX trainer's window stream
-        ep_rng = np.random.default_rng(cfg.train.seed + epoch)
-        mst = pde_data.max_start_time(pde.trajlen, th, tf, tg)
-        idx_stream = np.tile(np.arange(fields_dev.shape[0]), cycles)
-        if cfg.train.shuffle_trajectory_order:
-            idx_stream = ep_rng.permutation(idx_stream)
-        starts = ep_rng.integers(0, mst + 1, size=idx_stream.size)
-        bs = cfg.data.batch_size
-        n_steps = idx_stream.size // bs
-        idxs = torch.as_tensor(idx_stream[:n_steps * bs].reshape(n_steps, bs),
-                               device=device)
-        sts = torch.as_tensor(starts[:n_steps * bs].reshape(n_steps, bs),
-                              device=device)
-        model.train()
-        t0 = time.monotonic()
-        losses = []
-        for s in range(n_steps):
-            x, y = _gather_windows(fields_dev, idxs[s], sts[s], th, tf, tg)
+        def train_step(x, y):
+            nonlocal opt_count
             if schedule is not None:
                 opt.param_groups[0]["lr"] = schedule(opt_count)
             loss = loss_fn(x, y)
@@ -392,7 +424,36 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
                     p.grad = torch.zeros_like(p)
             opt.step()
             opt_count += 1
-            losses.append(loss.detach())
+            return loss.detach()
+
+        # ---- train epoch: the JAX trainer's window stream
+        bs = cfg.data.batch_size
+        model.train()
+        t0 = time.monotonic()
+        losses = []
+        if fields_dev is not None:
+            ep_rng = np.random.default_rng(cfg.train.seed + epoch)
+            mst = pde_data.max_start_time(pde.trajlen, th, tf, tg)
+            idx_stream = np.tile(np.arange(fields_dev.shape[0]), cycles)
+            if cfg.train.shuffle_trajectory_order:
+                idx_stream = ep_rng.permutation(idx_stream)
+            starts = ep_rng.integers(0, mst + 1, size=idx_stream.size)
+            n_steps = idx_stream.size // bs
+            idxs = torch.as_tensor(
+                idx_stream[:n_steps * bs].reshape(n_steps, bs), device=device)
+            sts = torch.as_tensor(starts[:n_steps * bs].reshape(n_steps, bs),
+                                  device=device)
+            for s in range(n_steps):
+                losses.append(train_step(*_gather_windows(
+                    fields_dev, idxs[s], sts[s], th, tf, tg)))
+        else:
+            windows = pde_data.randomized_train_windows(
+                train_opener, pde, th, tf, tg, seed=cfg.train.seed + epoch,
+                cycles=cycles)
+            for batch in pde_data.batched_windows(windows, bs):
+                losses.append(train_step(*loader_lib.to_device(batch,
+                                                               device)))
+        n_steps = len(losses)
         epoch_losses = (torch.stack(losses).cpu().numpy() if losses
                         else np.zeros(0))  # one fetch per epoch (syncs)
         dt = time.monotonic() - t0
@@ -408,9 +469,13 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
 
         # ---- validation (one-step + rollout)
         if (epoch + 1) % cfg.train.val_every_epochs == 0:
-            val = validate_device(cfg, model, pde, n_levels_used,
-                                  n_downsample if sequ else 0,
-                                  valid_fields_dev)
+            nd = n_downsample if sequ else 0
+            if valid_fields_dev is not None:
+                val = validate_device(cfg, model, pde, n_levels_used, nd,
+                                      valid_fields_dev)
+            else:
+                val = validate(cfg, model, pde, n_levels_used, nd,
+                               valid_opener, device)
             metrics_logger.log(val, step)
             if val.get("valid/unrolled_loss_mean", np.inf) < best_val:
                 best_val = val["valid/unrolled_loss_mean"]
@@ -446,8 +511,6 @@ def validate_device(cfg: Config, model: nn.Module, pde, n_levels_used,
     with the JAX trainer's window streams and statistics."""
     th, tf, tg = (cfg.data.time_history, cfg.data.time_future,
                   cfg.data.time_gap)
-    g_model = is_g_model(cfg.model.name)
-    multi_res = cfg.model.multi_res_loss
     nd = n_downsample
     n_sc = pde.n_scalar_components
     n_traj = fields_dev.shape[0]
@@ -455,12 +518,7 @@ def validate_device(cfg: Config, model: nn.Module, pde, n_levels_used,
     device = fields_dev.device
     was_training = model.training
     model.eval()
-
-    def apply_model(x):
-        if g_model:
-            pred = model(x, n_levels_used=n_levels_used)
-            return pred[-1] if multi_res else pred
-        return model(x)
+    apply_model = _eval_model_fn(cfg, model, n_levels_used)
 
     # ---- one-step sweep: start-major, trajectory-minor, tail dropped
     mst = pde_data.max_start_time(pde.trajlen, th, tf, tg)
@@ -511,6 +569,95 @@ def validate_device(cfg: Config, model: nn.Module, pde, n_levels_used,
             unrolled.extend(per_sample.cpu().numpy().tolist())
     if unrolled:
         mean, std = eval_metrics.bootstrap(np.asarray(unrolled, np.float32))
+        result["valid/unrolled_loss_mean"] = mean
+        result["valid/unrolled_loss_std"] = std
+    model.train(was_training)
+    return result
+
+
+def _eval_model_fn(cfg: Config, model: nn.Module, n_levels_used):
+    """The validated prediction: a ``_G`` model's finest output at
+    ``n_levels_used`` levels."""
+    if not is_g_model(cfg.model.name):
+        return model
+    multi_res = cfg.model.multi_res_loss
+
+    def apply_model(x):
+        pred = model(x, n_levels_used=n_levels_used)
+        return pred[-1] if multi_res else pred
+    return apply_model
+
+
+@torch.no_grad()
+def validate(cfg: Config, model: nn.Module, pde, n_levels_used,
+             n_downsample: int, opener, device: torch.device
+             ) -> Dict[str, float]:
+    """One-step and rollout validation of a split streamed from the host
+    (JAX ``validate``, ``pde.py:664-732``): the one-step windows in
+    batches, start-major, the tail dropped; then the rollouts, batched over
+    whole trajectories with the last partial batch kept.  The statistics
+    are :func:`validate_device`'s."""
+    th, tf, tg = (cfg.data.time_history, cfg.data.time_future,
+                  cfg.data.time_gap)
+    bs = cfg.data.batch_size
+    nd = n_downsample
+    was_training = model.training
+    model.eval()
+    apply_model = _eval_model_fn(cfg, model, n_levels_used)
+
+    one_step: Dict[str, float] = {}
+    count = 0
+    for batch in pde_data.batched_windows(
+            pde_data.eval_timestep_windows(opener, pde, th, tf, tg), bs):
+        x, y = loader_lib.to_device(batch, device)
+        if nd > 0:
+            x = wavelet.haar_downsample_traj(x, nd)
+            y = wavelet.haar_downsample_traj(y, nd)
+        pred = apply_model(x)
+        for k, fn in (("mse", losses_lib.custom_mse_loss),
+                      ("scaledl2", losses_lib.scaledlp_loss)):
+            one_step[k] = one_step.get(k, 0.0) + float(fn(pred, y))
+        count += 1
+    result = {f"valid/loss/{k}": v / max(count, 1)
+              for k, v in one_step.items()}
+
+    max_start = pde.trajlen - th - tf * cfg.data.max_num_steps - tg
+    starts_r = range(0, max_start + 1, tf + tg)
+
+    def rollout_batch(us, vs):
+        host = [np.stack(us)] + ([np.stack(vs)] if vs[0] is not None else [])
+        u, *rest = loader_lib.to_device(host, device)
+        v = rest[0] if rest else None
+        if nd > 0:
+            u = wavelet.haar_downsample_traj(u, nd)
+            v = wavelet.haar_downsample_traj(v, nd) if v is not None else None
+        f = torch.cat([u, v], dim=-1) if v is not None else u
+        ls = []
+        for start in starts_r:
+            pred = rollout_lib.rollout2d(
+                apply_model, u[:, start:start + th],
+                v[:, start:start + th] if v is not None else None, th,
+                cfg.data.max_num_steps)
+            t0 = start + th + tg
+            t1 = t0 + tf * cfg.data.max_num_steps
+            ls.append(eval_metrics.rollout_mse_per_sample_step(
+                pred, f[:, t0:t1]))
+        if not ls:
+            return []
+        return torch.stack(ls).mean(dim=0).sum(dim=-1).cpu().tolist()
+
+    unrolled: List[float] = []
+    us, vs = [], []
+    for (u, v, _) in pde_data.rollout_eval_trajectories(opener):
+        us.append(u)
+        vs.append(v)
+        if len(us) == bs:
+            unrolled.extend(rollout_batch(us, vs))
+            us, vs = [], []
+    if us:
+        unrolled.extend(rollout_batch(us, vs))
+    if unrolled:
+        mean, std = eval_metrics.bootstrap(np.asarray(unrolled))
         result["valid/unrolled_loss_mean"] = mean
         result["valid/unrolled_loss_std"] = std
     model.train(was_training)

@@ -1,12 +1,13 @@
-"""Figures of the trainers: sample grids, U-Net norms vs t, and the WMH
-segmentation overlay.
+"""Figures of the trainers: sample grids, U-Net norms vs t, scalar-field
+rollout panels, and the WMH segmentation overlay.
 
-Port of ``plot_sample_grid`` and ``plot_unet_norms``
-(``unet_design_tpu/utils/visualization.py:20-41, 93-109``;
-``diff_mnist/plotting.py:23, 194``).  matplotlib is imported when a figure
-is drawn, headless (Agg): the machine with the card has none, and a
-trainer asked for figures checks :func:`require_matplotlib` before its
-first step rather than skip them.
+Port of ``plot_sample_grid``, ``plot_scalar_field``,
+``plot_scalar_sequence_comparison`` and ``plot_unet_norms``
+(``unet_design_tpu/utils/visualization.py:20-72, 93-109``;
+``diff_mnist/plotting.py:23, 194``, ``pdearena/visualization.py:10-111``).
+matplotlib is imported when a figure is drawn, headless (Agg), so the
+package runs without it; a trainer asked for figures checks
+:func:`require_matplotlib` before its first step rather than skip them.
 
 The WMH overlay (``plot_segmentation``, ``:74-90``; ``wmh/plotting.py:83``)
 needs no matplotlib: :func:`segmentation_overlay` returns the pixels that
@@ -74,6 +75,41 @@ def plot_square_grid(images, title: str = ""):
                       else images)
     side = max(1, int(np.sqrt(len(imgs))))
     return plot_sample_grid(imgs[:side * side], side, side, title)
+
+
+def plot_scalar_field(ax, field: np.ndarray, title: str = ""):
+    """One ``(H, W)`` field on ``ax``, colour map ``twilight``, no ticks."""
+    im = ax.imshow(field, cmap="twilight")
+    ax.set_title(title)
+    ax.set_xticks([])
+    ax.set_yticks([])
+    return im
+
+
+def plot_scalar_sequence_comparison(init_field: np.ndarray,
+                                    ground_truth: np.ndarray,
+                                    prediction: np.ndarray):
+    """Rollout comparison panel (``pdearena/visualization.py:52-111``) of
+    ``(T, H, W)`` sequences: rows input window, ground truth, prediction
+    and absolute error, one column per frame."""
+    plt = _plt()
+    t_in, t_out = init_field.shape[0], ground_truth.shape[0]
+    ncols = max(t_in, t_out)
+    fig, axes = plt.subplots(4, ncols, figsize=(ncols * 1.6, 4 * 1.6),
+                             squeeze=False)
+    for t in range(ncols):
+        for r in range(4):
+            axes[r, t].set_xticks([])
+            axes[r, t].set_yticks([])
+        if t < t_in:
+            plot_scalar_field(axes[0, t], init_field[t], f"in t={t}")
+        if t < t_out:
+            plot_scalar_field(axes[1, t], ground_truth[t], f"gt t={t}")
+            plot_scalar_field(axes[2, t], prediction[t], f"pred t={t}")
+            axes[3, t].imshow(np.abs(ground_truth[t] - prediction[t]),
+                              cmap="magma")
+    fig.tight_layout()
+    return fig
 
 
 def plot_unet_norms(norms: Dict[float, Dict[str, Dict[int, List[float]]]],
