@@ -15,8 +15,8 @@ prints no result line); each prints its seconds:
    (image (32, 200, 200, 2) and mask (32, 200, 200, 1) at L4, L3, L2),
    and the streamed shallow-water ``Unetbase-64_G``'s (16, 96, 192, 3) L4
    (phase 11); time it at (8, 128, 128, 3) L4, (16, 96, 192, 3) L4, the
-   three CIFAR shapes, the three MNIST shapes and the six WMH shapes
-   beside its bound, the
+   three CIFAR shapes, the three MNIST shapes, the six WMH shapes and
+   (8, 64, 64, 3) L3 (phase 12's stage 0) beside its bound, the
    plain version, the ``F.avg_pool2d`` chain (kernel and chain in turns)
    and an empty kernel on the same grid (the launch floor);
 3. train ``Unetbase-64_G`` at full width (hidden 64, 128x128, batch 8) with
@@ -126,12 +126,30 @@ prints no result line); each prints its seconds:
    encoder and the multi-res loss staged and streamed; each arm's steps/s
    printed beside the staged arm's, the streamed losses within 1e-4 of the
    staged ones (the same windows), and the Haar kernel launched once a
-   step on the streamed ``Unetbase-64_G`` path.
+   step on the streamed ``Unetbase-64_G`` path;
+12. bf16 compute and rematerialisation (``model.use_bf16``,
+   ``model.remat``, ``MultiResUNet.use_checkpoint``) through the normal
+   entry points at full width: under deterministic cuDNN, the full-depth
+   fp32 ``Unetbase-64_G`` loss and gradients with and without remat bit
+   for bit (memory kept for the backward and peak logged), and one step of
+   the CIFAR yaml's ``MultiResUNet`` (ch 128, bf16, dropout 0.1) with and
+   without ``use_checkpoint``, loss, gradients and the dropout generator's
+   state bit for bit; phase 3's staged ``Unetbase-64_G`` (DWT encoder,
+   multi-res loss, freezing) for 2 stages of 3 steps in bf16 + remat,
+   fp32, and fp32 + remat (its losses within 1e-5 of fp32's), each run's
+   steps/s, peak memory and 6 kernel launches (the fp32 multi-res
+   targets) logged, the bf16 stage-0 loss within 0.03 of fp32's and the
+   bf16 model at batch 1 on the card within 0.03 of the scale of the same
+   bf16 weights on the CPU; ``configs/wmh.yaml``'s model in bf16 + remat,
+   staged, 2 steps a stage on ``synthetic_wmh(64)``, 18 launches (the
+   stage downsample of image and mask); the ``Unetbase-64`` bf16 forward
+   at phase 5's protocol beside phase 5's fp32 time; the conditioned
+   yaml's ``Unetmod-64`` in bf16, 2 steps and one validation.
 
 Kernel launches are counted on each training path alone (the count is set
 to 0 just before it and read just after) and printed per path; the
-kernels' JSON record carries their sum, phase 11's streamed path among
-them.  The line before the last is
+kernels' JSON record carries their sum, phase 11's streamed path and
+phase 12's bf16 / remat paths among them.  The line before the last is
 ``nvidia-smi``'s name and power limit; the one before that, the kernels'
 JSON record; the last line, ``{"ok": true, "device": {...}}``.  Imports
 nothing of JAX.
@@ -332,10 +350,11 @@ def phase_kernel(device) -> dict:
             raise AssertionError(f"WMH stage downsample {shape}: {err}")
 
     # timing: the PDE path's largest call, then the DDPM path's three, the
-    # VP path's three, the WMH image's and mask's three and the streamed
-    # shallow-water Unetbase-64_G's (phase 11)
+    # VP path's three, the WMH image's and mask's three, the streamed
+    # shallow-water Unetbase-64_G's (phase 11) and phase 12's 2-stage
+    # stage 0 (phase 3's stage 2)
     main = time_pyramid(haar, rand((8, 128, 128, 3)), 4)
-    for shape, n_levels in (((16, 96, 192, 3), 4),
+    for shape, n_levels in (((16, 96, 192, 3), 4), ((8, 64, 64, 3), 3),
                             ((128, 32, 32, 3), 4), ((128, 16, 16, 3), 3),
                             ((128, 8, 8, 3), 2), ((128, 64, 64, 1), 4),
                             ((128, 32, 32, 1), 3), ((128, 16, 16, 1), 2),
@@ -1685,22 +1704,311 @@ def phase_stream(data: str) -> int:
     return launches
 
 
-def phase_forward(device) -> None:
+def unetbase_forward_ms(device, dtype: torch.dtype = torch.float32
+                        ) -> float:
+    """The ``Unetbase-64`` forward at the ``bench.py`` protocol (batch 8,
+    (8, 4, 128, 128, 3)), CUDA events over 20 calls."""
     from unet_design_tpu_torch.models import registry
     from unet_design_tpu_torch.ops import blocks
     model = registry.build_model("Unetbase-64", 1, 1, time_history=4,
-                                 time_future=1)
+                                 time_future=1, dtype=dtype)
     blocks.flax_default_init_(model, torch.Generator().manual_seed(0))
     model = model.to(device).eval()
     x = torch.randn((8, 4, 128, 128, 3), generator=torch.Generator()
                     .manual_seed(0)).to(device)
     with torch.no_grad():
         y = model(x)
-        if y.shape != (8, 1, 128, 128, 3) or not torch.isfinite(y).all():
-            raise AssertionError(f"Unetbase-64 forward: {tuple(y.shape)}")
-        ms = time_ms(lambda: model(x), iters=20, warmup=3)
+        if (y.shape != (8, 1, 128, 128, 3) or y.dtype != dtype
+                or not torch.isfinite(y).all()):
+            raise AssertionError(f"Unetbase-64 forward: {tuple(y.shape)} "
+                                 f"{y.dtype}")
+        return time_ms(lambda: model(x), iters=20, warmup=3)
+
+
+def phase_forward(device) -> float:
+    ms = unetbase_forward_ms(device)
     log(f"[forward] Unetbase-64 bs8 (8,4,128,128,3) fp32 (TF32 off): "
         f"{ms:.4f} ms on {card_line()}")
+    return ms
+
+
+BF16_STAGES = [1, 1]       # phase 12: 2 stages of 3 steps of batch 8
+BF16_TRAJ = 24
+BF16_TOL = 0.03            # bf16 against fp32, of the scale
+WMH_BF16_SLICES = 64       # 57 training slices (2 steps), 7 validation
+
+
+def _bf16_slice_config(logdir: str, use_bf16: bool, remat: bool):
+    """Phase 3's full-width ``Unetbase-64_G`` recipe, 2 stages of 3 steps,
+    validated once (at the end), with the two options."""
+    cfg = _slice_config(logdir)
+    cfg.data.n_synthetic = BF16_TRAJ
+    cfg.train.num_epochs_list = list(BF16_STAGES)
+    cfg.train.stop_after_epochs = 0
+    cfg.train.val_every_epochs = len(BF16_STAGES)
+    cfg.model.use_bf16, cfg.model.remat = use_bf16, remat
+    return cfg
+
+
+def _bf16_pde_run(tag: str, use_bf16: bool, remat: bool) -> dict:
+    """``tasks.pde.train`` of :func:`_bf16_slice_config`; its per-stage
+    losses and steps/s, validation, peak memory and Haar launches."""
+    from unet_design_tpu_torch.ops import haar
+    from unet_design_tpu_torch.tasks import pde
+    logdir = os.path.join(HERE, "runs", "chip_smoke_bf16", tag)
+    shutil.rmtree(logdir, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = haar.launches
+    t0 = time.perf_counter()
+    state = pde.train(_bf16_slice_config(logdir, use_bf16, remat))
+    secs = time.perf_counter() - t0
+    records = _records(logdir)
+    get = lambda k: [r[k] for r in records if k in r]
+    out = dict(state=state, losses=get("train/loss_mean"),
+               sps=get("train/steps_per_sec"),
+               vals=get("valid/unrolled_loss_mean") + get("valid/loss/mse"),
+               peak=torch.cuda.max_memory_allocated(),
+               launches=haar.launches - before)
+    log(f"[bf16] Unetbase-64_G {tag} (hidden 64, 128x128, batch 8, stages "
+        f"{BF16_STAGES} of 3 steps): train/loss_mean {out['losses']}, "
+        f"steps/s {out['sps']}, validation {out['vals']}, peak memory "
+        f"{out['peak']} B, haar_pyramid launches {out['launches']}; "
+        f"{secs:.1f} s on {card_line()}")
+    n = len(BF16_STAGES)
+    if (len(out["losses"]) != n or len(out["vals"]) != 2
+            or not np.isfinite(out["losses"] + out["vals"]).all()
+            or state.step != 3 * n or out["launches"] != 3 * n):
+        raise AssertionError(f"{tag}: {out}")
+    if not all(p.dtype == torch.float32 for p in state.model.parameters()):
+        raise AssertionError(f"{tag}: parameters not fp32")
+    shutil.rmtree(logdir, ignore_errors=True)
+    return out
+
+
+def _grads_differ(g0: dict, g1: dict) -> list:
+    """Names whose gradients are not equal bit for bit (or present in one
+    run only)."""
+    return [n for n in g0 if (g0[n] is None) != (g1[n] is None) or (
+        g0[n] is not None and not torch.equal(g0[n], g1[n]))]
+
+
+def _remat_first_step() -> None:
+    """The full-depth multi-res loss and its gradients, fp32, with and
+    without remat from the same parameters and batch: bit for bit under
+    deterministic cuDNN (the trainer's loss, written out)."""
+    from unet_design_tpu_torch.ops import blocks, haar, wavelet
+    from unet_design_tpu_torch.process import losses as losses_lib
+    from unet_design_tpu_torch.tasks import pde
+    rng = np.random.default_rng(12)
+    x, y = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .cuda() for s in ((8, 4, 128, 128, 3), (8, 1, 128, 128, 3)))
+    results = []
+    for remat in (False, True):
+        model = pde.build_model(_bf16_slice_config("", False, remat))
+        blocks.flax_default_init_(model, torch.Generator().manual_seed(0))
+        model.cuda()
+        ys = wavelet.multires_targets_traj(y, 4, 0,
+                                           pyramid_fn=haar.haar_pyramid)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss = losses_lib.multires_sum(losses_lib.custom_mse_loss,
+                                       model(x, n_levels_used=4), ys)
+        kept = torch.cuda.memory_allocated() - base   # saved for backward
+        loss.backward()
+        torch.cuda.synchronize()
+        results.append((loss.detach(), {n: p.grad for n, p in
+                                         model.named_parameters()},
+                        (kept, torch.cuda.max_memory_allocated())))
+    (l0, g0, m0), (l1, g1, m1) = results
+    differ = _grads_differ(g0, g1)
+    log(f"[bf16] remat first step (fp32, full depth, deterministic cuDNN): "
+        f"loss {float(l0)!r} / {float(l1)!r}, {len(g0) - len(differ)} of "
+        f"{len(g0)} gradients equal bit for bit; kept for the backward "
+        f"{m0[0]} B without remat, {m1[0]} B with; peak memory of the step "
+        f"{m0[1]} B without, {m1[1]} B with")
+    if not torch.equal(l0, l1) or differ:
+        raise AssertionError(f"remat changed the step: {differ[:5]}")
+
+
+def _ddpm_checkpoint_step() -> None:
+    """One training step of the CIFAR yaml's ``MultiResUNet`` (ch 128,
+    bf16, dropout 0.1, batch 32) with and without ``use_checkpoint``:
+    loss, every gradient and the dropout generator's state after the
+    backward equal bit for bit (deterministic cuDNN)."""
+    from unet_design_tpu_torch.models.multires_unet import MultiResUNet
+    from unet_design_tpu_torch.ops import blocks
+    kw = dict(ch=128, ch_mult=(1, 2, 2, 2), attn=(1,), num_res_blocks=2,
+              dropout=0.1, dwt_encoder=True, multi_res_loss=True,
+              dtype=torch.bfloat16)
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((32, 32, 32, 3)).astype(
+        np.float32)).cuda()
+    t = torch.from_numpy(rng.integers(0, 1000, 32)).cuda()
+    results = []
+    for ckpt in (False, True):
+        model = MultiResUNet(**kw, use_checkpoint=ckpt)
+        blocks.ddpm_init_(model, torch.Generator().manual_seed(0))
+        model.cuda()
+        gen = torch.Generator(device=x.device).manual_seed(7)
+        outs = model(x, t, train=True, generator=gen)
+        loss = sum(((o.float() - 0.5) ** 2).mean() for o in outs)
+        loss.backward()
+        results.append((loss.detach(), {n: p.grad for n, p in
+                                         model.named_parameters()},
+                        gen.get_state()))
+    (l0, g0, s0), (l1, g1, s1) = results
+    differ = _grads_differ(g0, g1)
+    log(f"[bf16] MultiResUNet ch 128 bf16 dropout 0.1 use_checkpoint: loss "
+        f"{float(l0)!r} / {float(l1)!r}, {len(g0) - len(differ)} of "
+        f"{len(g0)} gradients equal, generator state equal "
+        f"{torch.equal(s0, s1)}")
+    if not torch.equal(l0, l1) or differ or not torch.equal(s0, s1):
+        raise AssertionError(f"use_checkpoint changed the step: "
+                             f"{differ[:5]}")
+
+
+def _bf16_card_vs_cpu(model, cfg) -> None:
+    """The bf16 run's model at batch 1 on the card and on the CPU, both
+    bf16: within ``BF16_TOL`` of the scale at every level."""
+    from unet_design_tpu_torch.tasks import pde
+    cpu = pde.build_model(cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    x = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        (1, 4, 128, 128, 3)).astype(np.float32))
+    with torch.no_grad():
+        out = model.eval()(x.cuda(), n_levels_used=4)
+        t0 = time.perf_counter()
+        ref = cpu.eval()(x, n_levels_used=4)
+        cpu_s = time.perf_counter() - t0
+    for a, b in zip(out, ref, strict=True):
+        err = float((a.cpu().float() - b.float()).abs().max())
+        scale = float(b.float().abs().max())
+        log(f"[bf16] forward {tuple(a.shape)} {a.dtype} card vs CPU: max abs"
+            f" err {err:.3g} (scale {scale:.3g}, tol {BF16_TOL} relative; "
+            f"the CPU forward {cpu_s:.1f} s)")
+        if (a.dtype != torch.bfloat16 or not torch.isfinite(a).all()
+                or err > BF16_TOL * scale):
+            raise AssertionError(f"bf16 forward on the card: {err}")
+
+
+def _bf16_wmh() -> int:
+    """``configs/wmh.yaml``'s model with ``use_bf16`` and ``remat``, the
+    staged arm of phase 7 on ``synthetic_wmh(64)``, one epoch of 2 steps
+    a stage; returns its Haar launches."""
+    from unet_design_tpu_torch.ops import haar
+    from unet_design_tpu_torch.tasks import wmh
+    logdir = os.path.join(HERE, "runs", "chip_smoke_bf16", "wmh")
+    shutil.rmtree(logdir, ignore_errors=True)
+    cfg = _wmh_config(logdir, 0)
+    cfg.model.use_bf16, cfg.model.remat = True, True
+    cfg.data.synthetic_size = WMH_BF16_SLICES
+    cfg.train.num_epochs_list = [1, 1, 1, 1]
+    cfg.train.stop_after_epochs = 0
+    before = haar.launches
+    t0 = time.perf_counter()
+    best, sweep = wmh.train(cfg)
+    secs = time.perf_counter() - t0
+    launches = haar.launches - before
+    records = _records(logdir)
+    get = lambda k: [r[k] for r in records if k in r]
+    losses = get("train/loss") + get("valid/loss") + get("test/loss")
+    log(f"[bf16] WMH bf16 + remat (hidden 16, 200x200, batch 32, 4 stages "
+        f"of 2 steps): train/loss {get('train/loss')}, valid/loss "
+        f"{get('valid/loss')}, test/best_dsc {get('test/best_dsc')}, steps/s"
+        f" {get('train/steps_per_sec')}, haar_pyramid launches {launches}; "
+        f"{secs:.1f} s on {card_line()}")
+    # image and mask of 2 steps and 1 validation batch in stages 0-2
+    if (len(losses) != 9 or not np.isfinite(losses).all() or len(sweep) != 9
+            or launches != 3 * 2 * 3
+            or not all(v.dtype == torch.float32 for v in best.values())):
+        raise AssertionError(f"WMH bf16: losses {losses}, launches "
+                             f"{launches}")
+    shutil.rmtree(logdir, ignore_errors=True)
+    return launches
+
+
+def _bf16_cond() -> None:
+    """The conditioned yaml's ``Unetmod-64`` in bf16: 2 steps (16
+    trajectories) and one validation (1 trajectory)."""
+    from unet_design_tpu_torch.tasks import cond_pde
+    from unet_design_tpu_torch.utils.config import parse_cli
+    logdir = os.path.join(HERE, "runs", "chip_smoke_bf16", "cond")
+    shutil.rmtree(logdir, ignore_errors=True)
+    openers = {"train": _cond_trajectories(16, 20),
+               "valid": _cond_trajectories(1, 21)}
+    args = ["--config", COND_YAML, f"train.logdir={logdir}",
+            "train.epochs=1", "model.use_bf16=true"]
+    cfg = parse_cli(cond_pde.Config, args)
+    t0 = time.perf_counter()
+    state = cond_pde.main(args, openers=openers)
+    secs = time.perf_counter() - t0
+    records = _records(logdir)
+    get = lambda k: [r[k] for r in records if k in r]
+    vals = get("valid/onestep_loss") + get("valid/unrolled_loss_mean")
+    fwds = get("valid/forwards")
+    log(f"[bf16] conditioned Unetmod-64 bf16 (128x128, batch 8): "
+        f"train/loss_mean {get('train/loss_mean')}, validation {vals} over "
+        f"{fwds} forwards in {get('valid/seconds')} s; {state.step} steps "
+        f"in {secs:.1f} s on {card_line()}")
+    losses = get("train/loss_mean") + vals
+    if (state.step != 2 or len(losses) != 3 or not np.isfinite(losses).all()
+            or fwds != [364 // 8 + cfg.train.max_num_steps]):
+        raise AssertionError(f"conditioned bf16: {losses}, {fwds}")
+    shutil.rmtree(logdir, ignore_errors=True)
+
+
+def phase_bf16(device, fp32_forward_ms: float) -> int:
+    """Phase 12: bf16 compute and rematerialisation through the normal
+    entry points at full width (see the module's docstring); returns the
+    Haar launches of its training paths."""
+    from unet_design_tpu_torch.ops import haar
+    cudnn = torch.backends.cudnn
+    deterministic = cudnn.deterministic
+    cudnn.deterministic = True   # for the bit-for-bit comparisons alone
+    try:
+        _remat_first_step()
+        _ddpm_checkpoint_step()
+    finally:
+        cudnn.deterministic = deterministic
+
+    haar.launches = 0   # the bf16 / remat training paths start here
+    bf16 = _bf16_pde_run("bf16 + remat", True, True)
+    cudnn.deterministic = True   # the fp32 pair is compared step by step
+    try:
+        fp32 = _bf16_pde_run("fp32", False, False)
+        fp32_remat = _bf16_pde_run("fp32 + remat", False, True)
+    finally:
+        cudnn.deterministic = deterministic
+    wmh_launches = _bf16_wmh()
+    launches = haar.launches  # the bf16 / remat training paths end here
+
+    gaps = [abs(a - b) / abs(b) for a, b in zip(fp32_remat["losses"],
+                                                fp32["losses"])]
+    log(f"[bf16] fp32 + remat vs fp32 per-stage losses: max relative gap "
+        f"{max(gaps):.3g} (tol 1e-5); peak memory {fp32_remat['peak']} B "
+        f"with remat, {fp32['peak']} B without, {bf16['peak']} B in bf16 "
+        f"with remat")
+    if max(gaps) > 1e-5:
+        raise AssertionError(f"remat changed training: {gaps}")
+    gap = abs(bf16["losses"][0] - fp32["losses"][0]) / abs(
+        fp32["losses"][0])
+    log(f"[bf16] stage-0 loss bf16 {bf16['losses'][0]!r} vs fp32 "
+        f"{fp32['losses'][0]!r}: relative gap {gap:.3g} (tol {BF16_TOL})")
+    if gap > BF16_TOL:
+        raise AssertionError(f"bf16 stage-0 loss off by {gap}")
+    _bf16_card_vs_cpu(bf16["state"].model,
+                      _bf16_slice_config("", True, True))
+
+    ms = unetbase_forward_ms(device, torch.bfloat16)
+    log(f"[forward] Unetbase-64 bs8 (8,4,128,128,3) bf16: {ms:.4f} ms "
+        f"(fp32, phase 5: {fp32_forward_ms:.4f} ms; {fp32_forward_ms / ms:.2f}"
+        f"x) on {card_line()}")
+    _bf16_cond()
+    log(f"[bf16] haar_pyramid launches on the bf16 / remat paths: "
+        f"{launches} (PDE {launches - wmh_launches}, WMH {wmh_launches})")
+    return launches
 
 
 def main() -> int:
@@ -1723,7 +2031,7 @@ def main() -> int:
     record = timed("kernel", phase_kernel, device)
     pde_launches = timed("slice", phase_slice)
     ddpm_launches = timed("ddpm", phase_ddpm)
-    timed("forward", phase_forward, device)
+    fp32_forward_ms = timed("forward", phase_forward, device)
     mnist_launches = timed("mnist", phase_mnist)
     wmh_launches = timed("wmh", phase_wmh)
     timed("wmh-loo", phase_wmh_loo)
@@ -1731,12 +2039,14 @@ def main() -> int:
     timed("zoo", phase_zoo, sw_data)
     timed("cond", phase_cond)
     stream_launches = timed("stream", phase_stream, sw_data)
+    bf16_launches = timed("bf16", phase_bf16, device, fp32_forward_ms)
     log(f"[launches] haar_pyramid per path: PDE staged training "
         f"{pde_launches}, DDPM staged training {ddpm_launches}, VP staged "
         f"training {mnist_launches}, WMH staged training {wmh_launches}, "
-        f"PDE streamed training {stream_launches}")
+        f"PDE streamed training {stream_launches}, bf16 / remat PDE and "
+        f"WMH training {bf16_launches}")
     record["launches"] = (pde_launches + ddpm_launches + mnist_launches
-                          + wmh_launches + stream_launches)
+                          + wmh_launches + stream_launches + bf16_launches)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [record]}))
     print(card_line())

@@ -1,5 +1,6 @@
 """The port's CUDA kernel against its plain version, and the diffusion,
-WMH and PDE-zoo slices' models, layers and trainers, and the DDPM's
+WMH and PDE-zoo slices' models, layers and trainers (the PDE trainer in
+bf16 with remat too), and the DDPM's
 evaluation (Inception, the Newton-Schulz root, ``evaluate``), on the card.
 
 Marked ``cuda``: each test skips where no CUDA device is present (the CPU
@@ -207,6 +208,31 @@ def test_full_width_ddpm_train_step(cuda, tmp_path):
     rec = json.loads(open(tmp_path / "metrics.jsonl").readline())
     assert np.isfinite(rec["train/loss"]) and np.isfinite(
         rec["train/grad_norm"])
+
+
+def test_full_width_bf16_remat_pde_train_step(cuda, tmp_path):
+    """One step of the full-width ``Unetbase-64_G`` (hidden 64, 128x128,
+    batch 8, DWT encoder, multi-res loss) with ``model.use_bf16`` and
+    ``model.remat``: a finite loss, fp32 parameters, one kernel launch
+    (the fp32 multi-res targets)."""
+    from unet_design_tpu_torch.tasks import pde
+    cfg = pde.Config()
+    cfg.model.dwt_encoder = True
+    cfg.model.multi_res_loss = True
+    cfg.model.use_bf16 = True
+    cfg.model.remat = True
+    cfg.data.n_synthetic = 8
+    cfg.data.train_cycles = 1
+    cfg.train.num_epochs_list = [1]
+    cfg.train.val_every_epochs = 2
+    cfg.train.logdir = str(tmp_path)
+    before = haar.launches
+    state = pde.train(cfg)
+    assert haar.launches == before + 1 and state.step == 1
+    assert all(p.dtype == torch.float32 for p in state.model.parameters())
+    recs = [json.loads(l) for l in open(tmp_path / "metrics.jsonl")]
+    assert np.isfinite([r["train/loss_mean"] for r in recs
+                        if "train/loss_mean" in r]).all()
 
 
 def test_full_width_diff_mnist_train_step(cuda, tmp_path):

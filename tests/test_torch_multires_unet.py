@@ -182,8 +182,6 @@ def test_cifar_config_loads_strictly(dwt_encoder):
 def test_rejects_what_it_does_not_build():
     with pytest.raises(ValueError):
         TModel(**dict(SMALL, attn=(3,)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TModel(**SMALL, use_checkpoint=True)
     tm = TModel(**SMALL)
     x = torch.zeros(1, 16, 16, 3)
     with pytest.raises(ValueError):

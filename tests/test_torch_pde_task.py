@@ -211,13 +211,29 @@ def test_unknown_config_key_raises():
         tconfig.parse_cli(tpde.Config, ["train.no_such_key=1"])
 
 
-@pytest.mark.parametrize("override", ["model.use_bf16=true",
-                                      "model.remat=true", "parallel.data=2"])
+@pytest.mark.parametrize("override", ["parallel.data=2"])
 def test_unported_options_raise(tmp_path, override):
     cfg = tconfig.parse_cli(tpde.Config, [override, "device=cpu",
                                           f"train.logdir={tmp_path}"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpde.train(cfg)
+
+
+@pytest.mark.parametrize("override", ["model.use_bf16=true",
+                                      "model.remat=true"])
+def test_bf16_and_remat_train_one_step(tmp_path, override):
+    """The staged ``Unetbase-64_G`` takes one step with the option: a
+    finite loss, fp32 parameters (in a bf16 model too)."""
+    cfg = _tiny_cfg(tmp_path, "run")
+    cfg.train.num_epochs_list = [1]
+    cfg.train.val_every_epochs = 2
+    setattr(cfg.model, override[len("model."):-len("=true")], True)
+    state = tpde.train(cfg)
+    assert state.step == 1
+    (loss,) = [r["train/loss_mean"] for r in _records(cfg.train.logdir)
+               if "train/loss_mean" in r]
+    assert np.isfinite(loss)
+    assert all(p.dtype == torch.float32 for p in state.model.parameters())
 
 
 def test_cuda_device_without_gpu_raises(tmp_path):

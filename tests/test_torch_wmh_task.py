@@ -309,12 +309,27 @@ def test_config_and_options():
                                                           "train.seed=2"]))
     assert ours.pop("device") == "cuda"
     assert ours == ref
-    for override, item in (("model.use_bf16=true", "7b"),
-                           ("model.remat=true", "7c"),
-                           ("parallel.data=2", "7e")):
+    for override, item in (("parallel.data=2", "7e"),):
         cfg = tconfig.parse_cli(twmh.Config, [override, "device=cpu"])
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             twmh.train(cfg)
+
+
+@pytest.mark.parametrize("option", ["use_bf16", "remat"])
+def test_bf16_and_remat_train_one_step(tmp_path, option):
+    """The staged model takes one step with the option and is tested:
+    a finite loss, fp32 parameters, a threshold sweep over probabilities
+    in [0, 1]."""
+    cfg = _tiny_cfg(tmp_path)
+    cfg.data.synthetic_size = 4
+    cfg.train.num_epochs_list = [1]
+    setattr(cfg.model, option, True)
+    best, sweep = twmh.train(cfg)
+    assert all(v.dtype == torch.float32 for v in best.values())
+    (loss,) = _per_epoch(cfg.train.logdir, "train/loss")
+    assert np.isfinite(loss)
+    assert len(sweep) == 9 and all(0.0 <= s["dsc"] <= 1.0
+                                   for s in sweep.values())
 
 
 def test_cuda_device_without_gpu_raises(tmp_path):

@@ -16,7 +16,10 @@ builds them.
 
 I/O: ``forward(x, time, z=None)`` with trajectories ``x (B, T, H, W, C)``,
 ``time (B,)`` fractional and ``z (B,)``; the output is ``(B, T_future, H,
-W, C)``.  Submodules carry the flax names (``time_embed_{1,2}``,
+W, C)``.  ``dtype`` is the compute dtype of the convs and dense layers,
+the embedding MLPs' included (flax's ``dtype``; parameters stay fp32): the
+input and the fp32 Fourier features are cast to it, and the conditioned
+spectral convs compute in fp32 and return it.  Submodules carry the flax names (``time_embed_{1,2}``,
 ``pde_emb_{1,2}``, ``image_proj``, ``down_{k}``, ``downsample_{i}``,
 ``middle_res{1,2}``, ``middle_attn``, ``up_{k}``, ``upsample_{i}``,
 ``final``; a block's ``conv1``, ``cond_emb``, ``conv2``, ``fourier{1,2}``,
@@ -62,18 +65,21 @@ class CondResidualBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  cond_channels: int, activation: str = "gelu",
-                 norm: bool = False, use_scale_shift_norm: bool = False):
+                 norm: bool = False, use_scale_shift_norm: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.act = blocks.get_activation(activation)
         self.scale_shift = use_scale_shift_norm
         self.norm1 = blocks.GroupNorm(1, in_channels) if norm else None
-        self.conv1 = blocks.conv3x3(in_channels, out_channels)
-        self.cond_emb = nn.Linear(cond_channels, out_channels
-                                  * (2 if use_scale_shift_norm else 1))
+        self.conv1 = blocks.conv3x3(in_channels, out_channels, dtype)
+        self.cond_emb = blocks.Linear(cond_channels, out_channels * (
+            2 if use_scale_shift_norm else 1), dtype=dtype)
         self.norm2 = (blocks.GroupNorm(1, out_channels) if norm
                       else None)
-        self.conv2 = _zero_init(blocks.conv3x3(out_channels, out_channels))
-        self.shortcut = (nn.Conv2d(in_channels, out_channels, 1)
+        self.conv2 = _zero_init(blocks.conv3x3(out_channels, out_channels,
+                                               dtype))
+        self.shortcut = (blocks.Conv2d(in_channels, out_channels, 1,
+                                       dtype=dtype)
                          if in_channels != out_channels else None)
 
     def _norm2(self, h: torch.Tensor) -> torch.Tensor:
@@ -100,22 +106,25 @@ class CondFourierResidualBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  cond_channels: int, modes1: int = 16, modes2: int = 16,
                  activation: str = "gelu", norm: bool = False,
-                 use_scale_shift_norm: bool = False):
+                 use_scale_shift_norm: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.act = blocks.get_activation(activation)
         self.scale_shift = use_scale_shift_norm
         self.norm1 = blocks.GroupNorm(1, in_channels) if norm else None
         self.fourier1 = CondSpectralConv2d(in_channels, out_channels,
                                            cond_channels, modes1, modes2)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 1)
-        self.cond_emb = nn.Linear(cond_channels, out_channels
-                                  * (2 if use_scale_shift_norm else 1))
+        self.conv1 = blocks.Conv2d(in_channels, out_channels, 1, dtype=dtype)
+        self.cond_emb = blocks.Linear(cond_channels, out_channels * (
+            2 if use_scale_shift_norm else 1), dtype=dtype)
         self.norm2 = (blocks.GroupNorm(1, out_channels) if norm
                       else None)
         self.fourier2 = CondSpectralConv2d(out_channels, out_channels,
                                            cond_channels, modes1, modes2)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 1)
-        self.shortcut = (nn.Conv2d(in_channels, out_channels, 1)
+        self.conv2 = blocks.Conv2d(out_channels, out_channels, 1,
+                                   dtype=dtype)
+        self.shortcut = (blocks.Conv2d(in_channels, out_channels, 1,
+                                       dtype=dtype)
                          if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
@@ -142,16 +151,18 @@ class ConditionEmbedding(nn.Module):
     activation and another dense layer.  ``z`` is added only when given."""
 
     def _init_embedding(self, hidden: int, activation: str,
-                        param_conditioning: Optional[str]) -> int:
+                        param_conditioning: Optional[str],
+                        dtype: torch.dtype) -> int:
         self.hidden = hidden
         self.param_conditioning = param_conditioning
         self.emb_act = blocks.get_activation(activation)
+        self.dtype = dtype
         tdim = 4 * hidden
-        self.time_embed_1 = nn.Linear(hidden, tdim)
-        self.time_embed_2 = nn.Linear(tdim, tdim)
+        self.time_embed_1 = blocks.Linear(hidden, tdim, dtype=dtype)
+        self.time_embed_2 = blocks.Linear(tdim, tdim, dtype=dtype)
         if param_conditioning == "scalar":
-            self.pde_emb_1 = nn.Linear(hidden, tdim)
-            self.pde_emb_2 = nn.Linear(tdim, tdim)
+            self.pde_emb_1 = blocks.Linear(hidden, tdim, dtype=dtype)
+            self.pde_emb_2 = blocks.Linear(tdim, tdim, dtype=dtype)
         return tdim
 
     def _mlp(self, v: torch.Tensor, name: str) -> torch.Tensor:
@@ -187,17 +198,20 @@ class CondModernUnet(ConditionEmbedding):
                  mid_attn: bool = False, n_blocks: int = 2,
                  n_fourier_layers: int = 0, modes1: int = 12,
                  modes2: int = 12, param_conditioning: Optional[str] = None,
-                 use_scale_shift_norm: bool = False):
+                 use_scale_shift_norm: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_output_fields = n_output_fields
         self.act = blocks.get_activation(activation)
         nc = hidden_channels
-        tdim = self._init_embedding(nc, activation, param_conditioning)
+        tdim = self._init_embedding(nc, activation, param_conditioning,
+                                    dtype)
         n_res = len(ch_mults)
         kw = dict(activation=activation, norm=norm,
-                  use_scale_shift_norm=use_scale_shift_norm)
+                  use_scale_shift_norm=use_scale_shift_norm, dtype=dtype)
 
-        self.image_proj = blocks.conv3x3(time_history * n_output_fields, nc)
+        self.image_proj = blocks.conv3x3(time_history * n_output_fields, nc,
+                                         dtype)
         skips = [nc]                      # the width of each map pushed
         c = nc
         bidx = 0
@@ -215,12 +229,13 @@ class CondModernUnet(ConditionEmbedding):
                 bidx += 1
                 skips.append(c)
             if i < n_res - 1:
-                self.add_module(f"downsample_{i}", nn.Conv2d(
-                    c, c, 3, stride=2, padding=1))
+                self.add_module(f"downsample_{i}", blocks.Conv2d(
+                    c, c, 3, stride=2, padding=1, dtype=dtype))
                 skips.append(c)
 
         self.middle_res1 = CondResidualBlock(c, c, tdim, **kw)
-        self.middle_attn = blocks.AttentionBlock(c) if mid_attn else None
+        self.middle_attn = (blocks.AttentionBlock(c, dtype=dtype)
+                            if mid_attn else None)
         self.middle_res2 = CondResidualBlock(c, c, tdim, **kw)
 
         bidx = 0
@@ -233,17 +248,18 @@ class CondModernUnet(ConditionEmbedding):
             c = out_ch
             if i > 0:
                 self.add_module(f"upsample_{i}", blocks.ConvTransposeUpsample(
-                    c, c, kernel=4))
+                    c, c, kernel=4, dtype=dtype))
         assert not skips
         self.n_res, self.n_blocks = n_res, n_blocks
         self.head_norm = blocks.GroupNorm(8, c) if norm else None
         self.final = _zero_init(blocks.conv3x3(
-            c, time_future * n_output_fields))
+            c, time_future * n_output_fields, dtype))
 
     def forward(self, x: torch.Tensor, time: torch.Tensor,
                 z: Optional[torch.Tensor] = None) -> torch.Tensor:
         emb = self.embed(time, z)
-        h = self.image_proj(common.to_nchw(common.collapse_time(x)))
+        h = self.image_proj(common.to_nchw(common.collapse_time(x)).to(
+            self.dtype))
         hs = [h]
         bidx = 0
         for i in range(self.n_res):

@@ -8,7 +8,7 @@ embedding to the first sum, before its activation.  The trunk is padded by
 ``padding`` zeros on the bottom and right only and cropped after.
 
 I/O: ``forward(x, time, z=None)``, trajectories ``(B, T, H, W, C)`` in and
-out, as the conditioned modern U-Net's.
+out, as the conditioned modern U-Net's, with its ``dtype`` policy.
 """
 
 from __future__ import annotations
@@ -33,18 +33,18 @@ class CondFourierBasicBlock(nn.Module):
 
     def __init__(self, planes: int, cond_channels: int, modes1: int = 16,
                  modes2: int = 16, activation: str = "gelu",
-                 norm: bool = False):
+                 norm: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         if norm:
             raise ValueError("CondFourierBasicBlock takes no norm")
         self.act = blocks.get_activation(activation)
         self.fourier1 = CondSpectralConv2d(planes, planes, cond_channels,
                                            modes1, modes2)
-        self.conv1 = nn.Conv2d(planes, planes, 1)
-        self.cond_emb = nn.Linear(cond_channels, planes)
+        self.conv1 = blocks.Conv2d(planes, planes, 1, dtype=dtype)
+        self.cond_emb = blocks.Linear(cond_channels, planes, dtype=dtype)
         self.fourier2 = CondSpectralConv2d(planes, planes, cond_channels,
                                            modes1, modes2)
-        self.conv2 = nn.Conv2d(planes, planes, 1)
+        self.conv2 = blocks.Conv2d(planes, planes, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         out = self.act(self.fourier1(x, emb) + self.conv1(x)
@@ -60,26 +60,29 @@ class CondPDEResNet(ConditionEmbedding):
                  time_future: int = 1, hidden_channels: int = 64,
                  activation: str = "gelu", norm: bool = False,
                  modes1: int = 16, modes2: int = 16, padding: int = 9,
-                 param_conditioning: Optional[str] = None):
+                 param_conditioning: Optional[str] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_output_fields = n_output_fields
         self.padding = padding
         self.act = blocks.get_activation(activation)
         c = hidden_channels
-        tdim = self._init_embedding(c, activation, param_conditioning)
-        self.conv_in1 = nn.Conv2d(time_history * n_output_fields, c, 1)
-        self.conv_in2 = nn.Conv2d(c, c, 1)
+        tdim = self._init_embedding(c, activation, param_conditioning, dtype)
+        self.conv_in1 = blocks.Conv2d(time_history * n_output_fields, c, 1,
+                                      dtype=dtype)
+        self.conv_in2 = blocks.Conv2d(c, c, 1, dtype=dtype)
         self.n_blocks = sum(num_blocks)
         for i in range(self.n_blocks):
             self.add_module(f"block_{i}", CondFourierBasicBlock(
-                c, tdim, modes1, modes2, activation, norm))
-        self.conv_out1 = nn.Conv2d(c, c, 1)
-        self.conv_out2 = nn.Conv2d(c, time_future * n_output_fields, 1)
+                c, tdim, modes1, modes2, activation, norm, dtype))
+        self.conv_out1 = blocks.Conv2d(c, c, 1, dtype=dtype)
+        self.conv_out2 = blocks.Conv2d(c, time_future * n_output_fields, 1,
+                                       dtype=dtype)
 
     def forward(self, x: torch.Tensor, time: torch.Tensor,
                 z: Optional[torch.Tensor] = None) -> torch.Tensor:
         emb = self.embed(time, z)
-        h = common.to_nchw(common.collapse_time(x))
+        h = common.to_nchw(common.collapse_time(x)).to(self.dtype)
         h = self.act(self.conv_in2(self.act(self.conv_in1(h))))
         p = self.padding
         if p > 0:

@@ -12,7 +12,10 @@ The JAX model's ``spatial_guard`` is a sharding hook for a TPU mesh's
 spatial axis; one card has no counterpart, so it is left out.
 
 I/O is the JAX package's: trajectories ``(B, T, H, W, C)``.  Inside, maps
-are NCHW stored channels_last.  Submodules carry the flax names
+are NCHW stored channels_last.  ``dtype`` is the compute dtype of the
+convs and dense layers (flax's ``dtype``; parameters stay fp32): the input
+is cast to it at the head, and the spectral convs compute in fp32 and
+return it.  Submodules carry the flax names
 (``image_proj``, ``down_{k}``, ``down_{k}_attn``, ``downsample_{i}``,
 ``middle_res1``, ``middle_attn``, ``middle_res2``, ``up_{k}``,
 ``up_{k}_attn``, ``upsample_{i}``, ``final``; the head's root
@@ -38,19 +41,22 @@ class FourierResidualBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, modes1: int = 16,
                  modes2: int = 16, activation: str = "gelu",
-                 norm: bool = False, n_groups: int = 1):
+                 norm: bool = False, n_groups: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.act = blocks.get_activation(activation)
         self.norm1 = blocks.GroupNorm(n_groups, in_channels) if norm else None
         self.fourier1 = SpectralConv2d(in_channels, out_channels, modes1,
                                        modes2)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 1)
+        self.conv1 = blocks.Conv2d(in_channels, out_channels, 1, dtype=dtype)
         self.norm2 = (blocks.GroupNorm(n_groups, out_channels) if norm
                       else None)
         self.fourier2 = SpectralConv2d(out_channels, out_channels, modes1,
                                        modes2)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 1)
-        self.shortcut = (nn.Conv2d(in_channels, out_channels, 1)
+        self.conv2 = blocks.Conv2d(out_channels, out_channels, 1,
+                                   dtype=dtype)
+        self.shortcut = (blocks.Conv2d(in_channels, out_channels, 1,
+                                       dtype=dtype)
                          if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -87,9 +93,11 @@ class ModernUnet(nn.Module):
                  use1x1: bool = False, n_fourier_layers: int = 0,
                  fourier_up: bool = False, modes1: int = 12,
                  modes2: int = 12, mode_scaling: bool = True,
-                 attn_softmax_axis: str = "keys"):
+                 attn_softmax_axis: str = "keys",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_output_fields = n_output_fields
+        self.dtype = dtype
         self.act = blocks.get_activation(activation)
         n_res = len(ch_mults)
         k = 1 if use1x1 else 3
@@ -99,16 +107,17 @@ class ModernUnet(nn.Module):
             if fourier:
                 m1, m2 = level_modes(modes1, modes2, i, mode_scaling)
                 block = FourierResidualBlock(c_in, c_out, m1, m2, activation,
-                                             norm)
+                                             norm, dtype=dtype)
             else:
-                block = blocks.ResidualBlock(c_in, c_out, activation, norm)
+                block = blocks.ResidualBlock(c_in, c_out, activation, norm,
+                                             dtype=dtype)
             self.add_module(name, block)
             if is_attn[i]:
                 self.add_module(name + "_attn", blocks.AttentionBlock(
-                    c_out, softmax_axis=attn_softmax_axis))
+                    c_out, softmax_axis=attn_softmax_axis, dtype=dtype))
 
-        self.image_proj = nn.Conv2d(time_history * n_output_fields, nc, k,
-                                    padding=k // 2)
+        self.image_proj = blocks.Conv2d(time_history * n_output_fields, nc,
+                                        k, padding=k // 2, dtype=dtype)
         # the encoder, with the width of each map pushed for the decoder
         skips = [nc]
         c = nc
@@ -121,14 +130,17 @@ class ModernUnet(nn.Module):
                 bidx += 1
                 skips.append(c)
             if i < n_res - 1:
-                self.add_module(f"downsample_{i}", nn.Conv2d(
-                    c, c, 3, stride=2, padding=1))
+                self.add_module(f"downsample_{i}", blocks.Conv2d(
+                    c, c, 3, stride=2, padding=1, dtype=dtype))
                 skips.append(c)
 
-        self.middle_res1 = blocks.ResidualBlock(c, c, activation, norm)
+        self.middle_res1 = blocks.ResidualBlock(c, c, activation, norm,
+                                                dtype=dtype)
         self.middle_attn = (blocks.AttentionBlock(
-            c, softmax_axis=attn_softmax_axis) if mid_attn else None)
-        self.middle_res2 = blocks.ResidualBlock(c, c, activation, norm)
+            c, softmax_axis=attn_softmax_axis, dtype=dtype)
+            if mid_attn else None)
+        self.middle_res2 = blocks.ResidualBlock(c, c, activation, norm,
+                                                dtype=dtype)
 
         bidx = 0
         for i in reversed(range(n_res)):
@@ -142,20 +154,21 @@ class ModernUnet(nn.Module):
             c = out_ch
             if i > 0:
                 self.add_module(f"upsample_{i}", blocks.ConvTransposeUpsample(
-                    c, c, kernel=4))
+                    c, c, kernel=4, dtype=dtype))
         assert not skips
         self.n_res, self.n_blocks = n_res, n_blocks
         self.is_attn = tuple(is_attn)
         self.head_norm = blocks.GroupNorm(8, c) if norm else None
-        self.final = nn.Conv2d(c, time_future * n_output_fields, k,
-                               padding=k // 2)
+        self.final = blocks.Conv2d(c, time_future * n_output_fields, k,
+                                   padding=k // 2, dtype=dtype)
 
     def _block(self, name: str, h: torch.Tensor, i: int) -> torch.Tensor:
         h = getattr(self, name)(h)
         return getattr(self, name + "_attn")(h) if self.is_attn[i] else h
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.image_proj(common.to_nchw(common.collapse_time(x)))
+        h = self.image_proj(common.to_nchw(common.collapse_time(x)).to(
+            self.dtype))
         hs = [h]
         bidx = 0
         for i in range(self.n_res):

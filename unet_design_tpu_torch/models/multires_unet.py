@@ -23,7 +23,9 @@ I/O is the JAX package's: ``x (B, H, W, C)`` NHWC, ``t (B,)`` integer
 timesteps.  Inside, feature maps are NCHW stored channels_last.  With
 ``dtype=torch.bfloat16`` (``model.use_bf16``) the blocks compute in bf16
 with fp32 parameters and fp32 GroupNorm statistics, and the outputs are
-bf16, as in the JAX model.
+bf16, as in the JAX model.  ``use_checkpoint`` recomputes each ResBlock in
+the backward (:func:`blocks.checkpoint`, the JAX ``nn.remat``), its
+dropout masks replayed from the same generator state.
 """
 
 from __future__ import annotations
@@ -61,10 +63,6 @@ class MultiResUNet(nn.Module):
                  use_checkpoint: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if use_checkpoint:
-            raise NotImplementedError(
-                "MultiResUNet use_checkpoint (remat) is not ported yet "
-                "(ROADMAP.md, queue A: MultiResUNet remat)")
         self.n_levels = n_levels = len(ch_mult)
         if not all(0 <= i < n_levels for i in attn):
             raise ValueError(f"attn {tuple(attn)} out of 0..{n_levels - 1}")
@@ -72,6 +70,7 @@ class MultiResUNet(nn.Module):
         self.num_res_blocks = num_res_blocks
         self.dwt_encoder = dwt_encoder
         self.multi_res_loss = multi_res_loss
+        self.use_checkpoint = use_checkpoint
         self.dtype = dtype
         tdim = ch * 4
         for l in range(n_levels):
@@ -150,7 +149,12 @@ class MultiResUNet(nn.Module):
             return tembs[level]
 
         def res(name, h, level):
-            return getattr(self, name)(h, temb(level), train, generator)
+            block = getattr(self, name)
+            if self.use_checkpoint and torch.is_grad_enabled():
+                return blocks.checkpoint(
+                    lambda h, e: block(h, e, train, generator), h,
+                    temb(level), generator=generator if train else None)
+            return block(h, temb(level), train, generator)
 
         for level in range(entry, self.n_levels):
             for i, (kind, out_ch) in enumerate(self.enc_plan[level]):

@@ -9,7 +9,9 @@ after), 1x1 convs out, with one of three blocks: ``BasicBlock``
 puts an FNO's spectral convs at 137x137 on a 128x128 input.
 
 I/O is the JAX package's: trajectories ``(B, T, H, W, C)``; inside, NCHW
-maps stored channels_last.  A block's GroupNorms are flax's automatic
+maps stored channels_last.  ``dtype`` is the convs' compute dtype (flax's
+``dtype``), the input cast to it at the head; parameters stay fp32 and the
+spectral convs compute in fp32.  A block's GroupNorms are flax's automatic
 ``GroupNorm_k`` in creation order, kept here as ``norms[k]``
 (``models/convert.py``).
 """
@@ -38,17 +40,18 @@ class BasicBlock(nn.Module):
 
     def __init__(self, in_planes: int, planes: int, activation: str = "relu",
                  norm: bool = True, num_groups: int = 1, modes1: int = 16,
-                 modes2: int = 16):
+                 modes2: int = 16, dtype: torch.dtype = torch.float32):
         # modes: unused, the blocks' constructors share one signature
         super().__init__()
         self.act = blocks.get_activation(activation)
         self.pre_norm = norm
         widths = ([in_planes] if norm else []) + [planes]
-        self.conv1 = nn.Conv2d(in_planes, planes, 3, padding=1)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1)
+        self.conv1 = blocks.conv3x3(in_planes, planes, dtype)
+        self.conv2 = blocks.conv3x3(planes, planes, dtype)
         self.shortcut_conv = None
         if in_planes != planes:
-            self.shortcut_conv = nn.Conv2d(in_planes, planes, 1, bias=False)
+            self.shortcut_conv = blocks.Conv2d(in_planes, planes, 1,
+                                               dtype=dtype, bias=False)
             widths += [planes] if norm else []
         self.norms = nn.ModuleList(blocks.GroupNorm(num_groups, c)
                                    for c in widths)
@@ -72,7 +75,7 @@ class DilatedBasicBlock(nn.Module):
 
     def __init__(self, in_planes: int, planes: int, activation: str = "relu",
                  norm: bool = True, num_groups: int = 1, modes1: int = 16,
-                 modes2: int = 16):
+                 modes2: int = 16, dtype: torch.dtype = torch.float32):
         # modes: unused, the blocks' constructors share one signature
         super().__init__()
         self.act = blocks.get_activation(activation)
@@ -80,8 +83,8 @@ class DilatedBasicBlock(nn.Module):
         self.norms = nn.ModuleList(blocks.GroupNorm(num_groups, c)
                                    for c in widths) if norm else None
         for i, (c, d) in enumerate(zip(widths, self.DILATIONS)):
-            self.add_module(f"conv_{i}", nn.Conv2d(c, planes, 3, padding=d,
-                                                   dilation=d))
+            self.add_module(f"conv_{i}", blocks.Conv2d(
+                c, planes, 3, padding=d, dtype=dtype, dilation=d))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = x
@@ -97,15 +100,15 @@ class FourierBasicBlock(nn.Module):
 
     def __init__(self, in_planes: int, planes: int, activation: str = "gelu",
                  norm: bool = False, num_groups: int = 1, modes1: int = 16,
-                 modes2: int = 16):
+                 modes2: int = 16, dtype: torch.dtype = torch.float32):
         super().__init__()
         if norm:
             raise ValueError("FourierBasicBlock takes no norm")
         self.act = blocks.get_activation(activation)
         self.fourier1 = SpectralConv2d(in_planes, planes, modes1, modes2)
-        self.conv1 = nn.Conv2d(in_planes, planes, 1)
+        self.conv1 = blocks.Conv2d(in_planes, planes, 1, dtype=dtype)
         self.fourier2 = SpectralConv2d(planes, planes, modes1, modes2)
-        self.conv2 = nn.Conv2d(planes, planes, 1)
+        self.conv2 = blocks.Conv2d(planes, planes, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.act(self.fourier1(x) + self.conv1(x))
@@ -126,24 +129,28 @@ class PDEResNet(nn.Module):
                  block: str = "basic", num_blocks: Sequence[int] = (1, 1, 1, 1),
                  time_future: int = 1, hidden_channels: int = 64,
                  activation: str = "gelu", norm: bool = True,
-                 modes1: int = 16, modes2: int = 16, padding: int = 9):
+                 modes1: int = 16, modes2: int = 16, padding: int = 9,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_output_fields = n_output_fields
         self.padding = padding
+        self.dtype = dtype
         self.act = blocks.get_activation(activation)
         c = hidden_channels
-        self.conv_in1 = nn.Conv2d(time_history * n_output_fields, c, 1)
-        self.conv_in2 = nn.Conv2d(c, c, 1)
+        self.conv_in1 = blocks.Conv2d(time_history * n_output_fields, c, 1,
+                                      dtype=dtype)
+        self.conv_in2 = blocks.Conv2d(c, c, 1, dtype=dtype)
         self.n_blocks = sum(num_blocks)
         for i in range(self.n_blocks):
             self.add_module(f"block_{i}", BLOCKS[block](
                 c, c, activation=activation, norm=norm, modes1=modes1,
-                modes2=modes2))
-        self.conv_out1 = nn.Conv2d(c, c, 1)
-        self.conv_out2 = nn.Conv2d(c, time_future * n_output_fields, 1)
+                modes2=modes2, dtype=dtype))
+        self.conv_out1 = blocks.Conv2d(c, c, 1, dtype=dtype)
+        self.conv_out2 = blocks.Conv2d(c, time_future * n_output_fields, 1,
+                                       dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = common.to_nchw(common.collapse_time(x))
+        h = common.to_nchw(common.collapse_time(x)).to(self.dtype)
         h = self.act(self.conv_in2(self.act(self.conv_in1(h))))
         p = self.padding
         if p > 0:

@@ -17,6 +17,10 @@ and updates the running ones; ``model.eval()`` uses the running ones, as
 flax's ``batch_stats`` into them.
 
 I/O: trajectories ``(B, T, H, W, C)`` in and out, H and W multiples of 16.
+``dtype`` is the convs' compute dtype (flax's ``dtype``, the input cast to
+it at the head); the BatchNorm computes in fp32 and returns fp32 whatever
+its input, as flax's ``BatchNorm(dtype=float32)`` does, so each level's
+activations stay fp32 until the next conv casts them.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = x.float()     # the output stays fp32 (flax's dtype=float32)
         if self.training:
             mean = xf.mean(dim=(0, 2, 3))
             var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0)
@@ -56,7 +60,7 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[:, None, None]) * mul[:, None, None]
-        return (y + self.bias[:, None, None]).to(x.dtype)
+        return y + self.bias[:, None, None]
 
 
 class BNBlock(nn.Module):
@@ -64,13 +68,15 @@ class BNBlock(nn.Module):
     (``_BNBlock``, ``unet2015.py:24-40``)."""
 
     def __init__(self, in_channels: int, features: int,
-                 activation: str = "tanh"):
+                 activation: str = "tanh",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.act = blocks.get_activation(activation)
-        self.conv1 = nn.Conv2d(in_channels, features, 3, padding=1,
-                               bias=False)
+        self.conv1 = blocks.Conv2d(in_channels, features, 3, padding=1,
+                                   dtype=dtype, bias=False)
         self.norm1 = BatchNorm(features)
-        self.conv2 = nn.Conv2d(features, features, 3, padding=1, bias=False)
+        self.conv2 = blocks.Conv2d(features, features, 3, padding=1,
+                                   dtype=dtype, bias=False)
         self.norm2 = BatchNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -87,28 +93,31 @@ class Unet2015(nn.Module):
 
     def __init__(self, n_output_fields: int, time_history: int = 4,
                  time_future: int = 1, hidden_channels: int = 64,
-                 activation: str = "gelu"):
+                 activation: str = "gelu",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_output_fields = n_output_fields
+        self.dtype = dtype
         f = hidden_channels
         c = time_history * n_output_fields
         for i, mult in enumerate(self.MULTS):
             self.add_module(f"encoder{i + 1}", BNBlock(c, f * mult,
-                                                       activation))
+                                                       activation, dtype))
             c = f * mult
-        self.bottleneck = BNBlock(c, f * 16, activation)
+        self.bottleneck = BNBlock(c, f * 16, activation, dtype)
         c = f * 16
         for mult in reversed(self.MULTS):
             level = self.MULTS.index(mult) + 1
             self.add_module(f"upconv{level}", blocks.ConvTransposeUpsample(
-                c, f * mult, kernel=2))
-            self.add_module(f"decoder{level}", BNBlock(2 * f * mult,
-                                                       f * mult, activation))
+                c, f * mult, kernel=2, dtype=dtype))
+            self.add_module(f"decoder{level}", BNBlock(
+                2 * f * mult, f * mult, activation, dtype))
             c = f * mult
-        self.conv = nn.Conv2d(c, time_future * n_output_fields, 1)
+        self.conv = blocks.Conv2d(c, time_future * n_output_fields, 1,
+                                  dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = common.to_nchw(common.collapse_time(x))
+        h = common.to_nchw(common.collapse_time(x)).to(self.dtype)
         enc = []
         for i in range(len(self.MULTS)):
             if i > 0:

@@ -11,7 +11,11 @@ carries the paper's ideas: the parameter-free DWT encoder, per-level heads
 
 Public I/O is the JAX package's: trajectories ``(B, T, H, W, C)``, or NHWC
 images for ``WMHSegUnet``.  Inside, feature maps are NCHW stored
-channels_last (``common.to_nchw``).
+channels_last (``common.to_nchw``).  ``dtype=torch.bfloat16``
+(``model.use_bf16``) computes every conv in bf16 with fp32 parameters and
+fp32 GroupNorm statistics, and returns bf16, as the JAX models do;
+``remat`` (the G-variants) recomputes each conv block in the backward
+(:func:`blocks.checkpoint`), the same function with less memory kept.
 Submodules carry the flax modules' names, so ``models/convert.py`` and the
 staged-freezing rules (``train/freezing.py``) find each one by name.
 """
@@ -34,11 +38,12 @@ class Unetbase(nn.Module):
 
     def __init__(self, n_output_fields: int, time_history: int = 4,
                  time_future: int = 1, hidden_channels: int = 64,
-                 activation: str = "gelu", norm: bool = True):
+                 activation: str = "gelu", norm: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_output_fields = n_output_fields
         c = hidden_channels
-        kw = dict(activation=activation, norm=norm)
+        kw = dict(activation=activation, norm=norm, dtype=dtype)
         self.image_proj = blocks.ConvBlock(time_history * n_output_fields, c,
                                            **kw)
         mults = (1, 2, 4, 8, 16)
@@ -47,10 +52,10 @@ class Unetbase(nn.Module):
                 c * mults[i], c * mults[i + 1], **kw))
         for i, mult in enumerate((8, 4, 2, 1)):
             self.add_module(f"up_{i}_tconv", blocks.ConvTransposeUpsample(
-                2 * c * mult, c * mult))
+                2 * c * mult, c * mult, dtype=dtype))
             self.add_module(f"up_{i}", blocks.ConvBlock(2 * c * mult,
                                                         c * mult, **kw))
-        self.final = blocks.conv3x3(c, n_output_fields * time_future)
+        self.final = blocks.conv3x3(c, n_output_fields * time_future, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = common.to_nchw(common.collapse_time(x))
@@ -98,11 +103,14 @@ class UnetbaseGCore(nn.Module):
                  multi_res_loss: bool = False, sequ_mode: bool = False,
                  no_skip_connection: bool = False, no_down_up: bool = False,
                  sigmoid_out: bool = False, num_groups: int = 1,
-                 n_levels: int = 4):
+                 n_levels: int = 4, remat: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if up_fct not in ("conv", "interpolate_nearest"):
             raise NotImplementedError(up_fct)
         self.n_levels = n_levels
+        self.remat = remat
+        self.dtype = dtype
         self.dwt_encoder = dwt_encoder
         self.up_fct = up_fct
         self.n_extra_resnet_layers = n_extra_resnet_layers
@@ -111,7 +119,7 @@ class UnetbaseGCore(nn.Module):
         self.no_down_up = no_down_up
         self.sigmoid_out = sigmoid_out
         c = hidden_channels
-        kw = dict(num_groups=num_groups, activation=activation)
+        kw = dict(num_groups=num_groups, activation=activation, dtype=dtype)
         self.down_in = [c * 2 ** j for j in range(n_levels)]         # c..8c
         self.down_out = [c * 2 ** (j + 1) for j in range(n_levels)]  # 2c..16c
         up_in = self.down_out[::-1]                                  # 16c..2c
@@ -128,10 +136,11 @@ class UnetbaseGCore(nn.Module):
         for j in range(n_levels):
             if up_fct == "conv" and not no_down_up:
                 self.add_module(f"up_{j}_tconv", blocks.ConvTransposeUpsample(
-                    up_in[j], up_in[j] // 2))
+                    up_in[j], up_in[j] // 2, dtype=dtype))
             elif up_fct == "interpolate_nearest":
                 self.add_module(f"up_{j}_chconv",
-                                blocks.conv3x3(up_in[j], up_in[j] // 2))
+                                blocks.conv3x3(up_in[j], up_in[j] // 2,
+                                               dtype))
             # the skip (up_in/2 channels) beside the upsampled map, which
             # keeps all up_in channels when no_down_up skips the tconv
             up_ch = up_in[j] if up_fct == "conv" and no_down_up \
@@ -143,7 +152,15 @@ class UnetbaseGCore(nn.Module):
                                 blocks.FullResnetConvBlock(up_out[j], **kw))
         for j in (range(n_levels) if every_level else [n_levels - 1]):
             self.add_module(f"final_{j}",
-                            blocks.conv3x3(up_out[j], out_channels))
+                            blocks.conv3x3(up_out[j], out_channels, dtype))
+
+    def _block(self, name: str, h: torch.Tensor) -> torch.Tensor:
+        """A conv block, recomputed in the backward under ``remat`` (not
+        under ``torch.no_grad()``, where nothing is kept anyway)."""
+        block = getattr(self, name)
+        if self.remat and torch.is_grad_enabled():
+            return blocks.checkpoint(block, h)
+        return block(h)
 
     def _tail(self, j: int, h: torch.Tensor) -> torch.Tensor:
         out = getattr(self, f"final_{j}")(h)
@@ -155,7 +172,7 @@ class UnetbaseGCore(nn.Module):
         if not 1 <= n <= self.n_levels:
             raise ValueError(f"n_levels_used={n} outside 1..{self.n_levels}")
         entry = self.n_levels - n
-        h = getattr(self, f"image_proj_{entry}")(x)
+        h = self._block(f"image_proj_{entry}", x.to(self.dtype))
 
         skips = [h]
         for i in range(entry, self.n_levels):
@@ -166,7 +183,7 @@ class UnetbaseGCore(nn.Module):
             else:
                 if not self.no_down_up:
                     h = F.avg_pool2d(h, 2)
-                h = getattr(self, f"down_{i}")(h)
+                h = self._block(f"down_{i}", h)
             if i != self.n_levels - 1:
                 skips.append(h)
 
@@ -182,9 +199,9 @@ class UnetbaseGCore(nn.Module):
             up = _match_spatial(up, s.shape[2:])
             if self.no_skip_connection:
                 s = torch.zeros_like(s)
-            h = getattr(self, f"up_{j}")(torch.cat([s, up], dim=1))
+            h = self._block(f"up_{j}", torch.cat([s, up], dim=1))
             for r in range(self.n_extra_resnet_layers):
-                h = getattr(self, f"up_{j}_extra_{r}")(h)
+                h = self._block(f"up_{j}_extra_{r}", h)
             if self.multi_res_loss:
                 outs.append(self._tail(j, h))
         if self.multi_res_loss:
@@ -204,7 +221,8 @@ class UnetbaseG(nn.Module):
                  n_extra_resnet_layers: int = 0,
                  multi_res_loss: bool = False, sequ_mode: bool = False,
                  no_skip_connection: bool = False, no_down_up: bool = False,
-                 n_levels: int = 4):
+                 n_levels: int = 4, remat: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_output_fields = n_output_fields
         self.n_levels = n_levels
@@ -217,7 +235,7 @@ class UnetbaseG(nn.Module):
             n_extra_resnet_layers=n_extra_resnet_layers,
             multi_res_loss=multi_res_loss, sequ_mode=sequ_mode,
             no_skip_connection=no_skip_connection, no_down_up=no_down_up,
-            n_levels=n_levels)
+            n_levels=n_levels, remat=remat, dtype=dtype)
 
     def forward(self, x: torch.Tensor, n_levels_used: Optional[int] = None):
         h = common.to_nchw(common.collapse_time(x))
@@ -246,7 +264,8 @@ class WMHSegUnet(nn.Module):
                  n_extra_resnet_layers: int = 0,
                  multi_res_loss: bool = False, sequ_mode: bool = False,
                  no_skip_connection: bool = False, no_down_up: bool = False,
-                 n_levels: int = 4):
+                 n_levels: int = 4, remat: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_levels = n_levels
         self.multi_res_loss = multi_res_loss
@@ -256,7 +275,7 @@ class WMHSegUnet(nn.Module):
             n_extra_resnet_layers=n_extra_resnet_layers,
             multi_res_loss=multi_res_loss, sequ_mode=sequ_mode,
             no_skip_connection=no_skip_connection, no_down_up=no_down_up,
-            sigmoid_out=True, n_levels=n_levels)
+            sigmoid_out=True, n_levels=n_levels, remat=remat, dtype=dtype)
 
     def forward(self, x: torch.Tensor, n_levels_used: Optional[int] = None):
         out = self.core(common.to_nchw(x), n_levels_used=n_levels_used)

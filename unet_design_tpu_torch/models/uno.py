@@ -16,6 +16,10 @@ the weights renormalised over the taps that fall inside the image.
 -0.75``, no renormalisation); with ``antialias=True`` it is this one.
 
 I/O: trajectories ``(B, T, H, W, C)`` in and out; inside, NCHW maps.
+``dtype`` is the dense and 1x1 layers' compute dtype (flax's ``dtype``,
+the input cast to it at the head); the spectral convs and the instance
+norm compute in fp32 and return their input's dtype, and the cubic resize
+runs in its input's dtype, as ``jax.image.resize`` does.
 """
 
 from __future__ import annotations
@@ -109,11 +113,12 @@ class OperatorBlock2D(nn.Module):
     block of UNO, are left out)."""
 
     def __init__(self, in_channels: int, out_channels: int, modes1: int,
-                 modes2: int):
+                 modes2: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv = SpectralConv2dUno(in_channels, out_channels, modes1,
                                       modes2)
-        self.pointwise = nn.Conv2d(in_channels, out_channels, 1)
+        self.pointwise = blocks.Conv2d(in_channels, out_channels, 1,
+                                       dtype=dtype)
         self.resize = CubicResize()
         self.inorm = InstanceNorm(out_channels)
 
@@ -136,13 +141,16 @@ class UNO(nn.Module):
 
     def __init__(self, n_output_fields: int, time_history: int = 4,
                  time_future: int = 1, hidden_channels: int = 64,
-                 activation: str = "gelu"):
+                 activation: str = "gelu",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_output_fields = n_output_fields
+        self.dtype = dtype
         self.act = blocks.get_activation(activation)
         w = hidden_channels
-        self.fc = nn.Linear(time_history * n_output_fields, w // 2)
-        self.fc0 = nn.Linear(w // 2, w)
+        self.fc = blocks.Linear(time_history * n_output_fields, w // 2,
+                                dtype=dtype)
+        self.fc0 = blocks.Linear(w // 2, w, dtype=dtype)
         widths = {name: w if k is None else int(k * self.FACTOR * w)
                   for name, k, _ in self.BLOCKS}
         # inputs: L4 and L5 take their skip (L1, L0) beside the last output
@@ -152,12 +160,13 @@ class UNO(nn.Module):
                "L6": widths["L5"] + widths["L0"]}
         for name, _, modes in self.BLOCKS:
             self.add_module(name, OperatorBlock2D(ins[name], widths[name],
-                                                  modes, modes))
-        self.fc1 = nn.Linear(widths["L6"] + w, 4 * w)
-        self.fc2 = nn.Linear(4 * w, time_future * n_output_fields)
+                                                  modes, modes, dtype))
+        self.fc1 = blocks.Linear(widths["L6"] + w, 4 * w, dtype=dtype)
+        self.fc2 = blocks.Linear(4 * w, time_future * n_output_fields,
+                                 dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.act(self.fc(common.collapse_time(x)))   # NHWC
+        h = self.act(self.fc(common.collapse_time(x).to(self.dtype)))  # NHWC
         h = self.act(self.fc0(h)).permute(0, 3, 1, 2)
         d1, d2 = h.shape[2], h.shape[3]
         f = self.FACTOR

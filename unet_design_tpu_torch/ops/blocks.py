@@ -22,14 +22,18 @@ function :func:`nearest_upsample` keeps the JAX package's NHWC layout.  A
 flax ``Conv(k, (3, 3))`` with 'SAME' padding at stride 1 is ``padding=1``
 here.
 
-Dtype policy of the DDPM blocks, as flax's ``dtype`` / ``param_dtype``:
-parameters stay fp32; :class:`Conv2d` and :class:`Linear` cast their input,
-weight and bias to the compute ``dtype`` (bf16 under ``model.use_bf16``)
-and return it; :class:`GroupNorm` computes in fp32 and casts back.  Written
+Dtype policy of every block, as flax's ``dtype`` / ``param_dtype``:
+parameters stay fp32; :class:`Conv2d`, :class:`ConvTranspose2d` and
+:class:`Linear` cast their input, weight and bias to the compute ``dtype``
+(bf16 under ``model.use_bf16``) and return it; :class:`GroupNorm` computes
+in fp32 and casts back, and the attention softmaxes run in fp32.  Written
 out rather than left to ``torch.autocast``, which would keep GroupNorm's
 output and the residual adds in fp32 and so compute something else.  One
 difference remains: the conv bias is added inside the convolution (one
 rounding), where flax adds it to the rounded output (two).
+
+:func:`checkpoint` is ``nn.remat`` of a block: activations recomputed in
+the backward, the dropout masks of an explicit generator replayed.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from unet_design_tpu_torch.ops.embeddings import ddpm_time_embedding
 from unet_design_tpu_torch.ops.spectral import SpectralConv2d
@@ -87,8 +92,9 @@ class GroupNorm(nn.GroupNorm):
                             self.bias.double(), self.eps).to(x.dtype)
 
 
-def conv3x3(in_channels: int, out_channels: int) -> nn.Conv2d:
-    return nn.Conv2d(in_channels, out_channels, 3, padding=1)
+def conv3x3(in_channels: int, out_channels: int,
+            dtype: torch.dtype = torch.float32) -> "Conv2d":
+    return Conv2d(in_channels, out_channels, 3, padding=1, dtype=dtype)
 
 
 class ConvBlock(nn.Module):
@@ -96,11 +102,12 @@ class ConvBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  num_groups: int = 1, norm: bool = True,
-                 activation: str = "gelu"):
+                 activation: str = "gelu",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.act = get_activation(activation)
-        self.conv1 = conv3x3(in_channels, out_channels)
-        self.conv2 = conv3x3(out_channels, out_channels)
+        self.conv1 = conv3x3(in_channels, out_channels, dtype)
+        self.conv2 = conv3x3(out_channels, out_channels, dtype)
         self.norm1 = GroupNorm(num_groups, out_channels) if norm else None
         self.norm2 = GroupNorm(num_groups, out_channels) if norm else None
 
@@ -126,10 +133,11 @@ class FullResnetConvBlock(nn.Module):
     """:class:`ConvBlock` with an identity skip (``twod_unetbase.py:148-151``)."""
 
     def __init__(self, channels: int, num_groups: int = 1, norm: bool = True,
-                 activation: str = "gelu"):
+                 activation: str = "gelu",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.block = ConvBlock(channels, channels, num_groups, norm,
-                               activation)
+                               activation, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.block(x) + x
@@ -150,12 +158,14 @@ class ConvTransposeUpsample(nn.Module):
     ``ConvTranspose2d(k, stride=2, padding=k // 2 - 1)`` with the kernel
     flipped in space (see :mod:`unet_design_tpu_torch.models.convert`)."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel: int = 2):
+    def __init__(self, in_channels: int, out_channels: int, kernel: int = 2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if kernel not in (2, 4):
             raise NotImplementedError(f"kernel {kernel}")
-        self.tconv = nn.ConvTranspose2d(in_channels, out_channels, kernel,
-                                        stride=2, padding=kernel // 2 - 1)
+        self.tconv = ConvTranspose2d(in_channels, out_channels, kernel,
+                                     stride=2, padding=kernel // 2 - 1,
+                                     dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.tconv(x)
@@ -172,14 +182,14 @@ class ResidualBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  activation: str = "gelu", norm: bool = False,
-                 n_groups: int = 1):
+                 n_groups: int = 1, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.act = get_activation(activation)
         self.norm1 = GroupNorm(n_groups, in_channels) if norm else None
-        self.conv1 = conv3x3(in_channels, out_channels)
+        self.conv1 = conv3x3(in_channels, out_channels, dtype)
         self.norm2 = GroupNorm(n_groups, out_channels) if norm else None
-        self.conv2 = conv3x3(out_channels, out_channels)
-        self.shortcut = (nn.Conv2d(in_channels, out_channels, 1)
+        self.conv2 = conv3x3(out_channels, out_channels, dtype)
+        self.shortcut = (Conv2d(in_channels, out_channels, 1, dtype=dtype)
                          if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -193,22 +203,24 @@ class ResidualBlock(nn.Module):
 class AttentionBlock(nn.Module):
     """Multi-head spatial self-attention (``twod_unet.py:126-181``): a
     fused ``dense1`` to q, k, v per head, the explicit products scaled by
-    ``d_k^-1/2``, the softmax in fp32 (cast back), ``dense2`` and the
-    residual.  ``softmax_axis='keys'`` is standard attention;
-    ``'queries'`` normalises over the queries as the reference's
+    ``d_k^-1/2``, the softmax in fp32 (cast back to the compute dtype),
+    ``dense2`` and the residual.  ``softmax_axis='keys'`` is standard
+    attention; ``'queries'`` normalises over the queries as the reference's
     ``softmax(dim=1)`` does, which ``scaled_dot_product_attention`` cannot
     express.  ``x`` NCHW."""
 
     def __init__(self, channels: int, n_heads: int = 1,
-                 d_k: Optional[int] = None, softmax_axis: str = "keys"):
+                 d_k: Optional[int] = None, softmax_axis: str = "keys",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if softmax_axis not in ("keys", "queries"):
             raise ValueError(f"softmax_axis {softmax_axis!r}")
         self.n_heads = n_heads
         self.d_k = d_k or channels
         self.softmax_dim = 2 if softmax_axis == "keys" else 1
-        self.dense1 = nn.Linear(channels, n_heads * self.d_k * 3)
-        self.dense2 = nn.Linear(n_heads * self.d_k, channels)
+        self.compute_dtype = dtype
+        self.dense1 = Linear(channels, n_heads * self.d_k * 3, dtype=dtype)
+        self.dense2 = Linear(n_heads * self.d_k, channels, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, hh, ww = x.shape
@@ -218,7 +230,8 @@ class AttentionBlock(nn.Module):
         qkv = self.dense1(seq).view(b, n, nh, 3 * dk).transpose(1, 2)
         q, k, v = (z.reshape(b * nh, n, dk) for z in qkv.chunk(3, dim=-1))
         attn = torch.bmm(q, k.transpose(1, 2)) * dk ** -0.5    # (., i, j)
-        attn = torch.softmax(attn.float(), dim=self.softmax_dim).to(x.dtype)
+        attn = torch.softmax(attn.float(), dim=self.softmax_dim).to(
+            self.compute_dtype)
         res = torch.bmm(attn, v).view(b, nh, n, dk).transpose(1, 2)
         res = self.dense2(res.reshape(b, n, nh * dk)) + seq
         return res.transpose(1, 2).reshape(b, c, hh, ww)
@@ -228,6 +241,11 @@ class AttentionBlock(nn.Module):
 # DDPM (diff_cifar) blocks
 # ----------------------------------------------------------------------------
 
+def _cast(t: Optional[torch.Tensor], dtype: torch.dtype
+          ) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dtype)
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` with fp32 parameters that computes in ``dtype``; its
     fresh init is Xavier-uniform times ``gain`` (:func:`ddpm_init_`), or
@@ -236,9 +254,11 @@ class Conv2d(nn.Conv2d):
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, gain: float = 1.0,
-                 dtype: torch.dtype = torch.float32, zero_init: bool = False):
+                 dtype: torch.dtype = torch.float32, zero_init: bool = False,
+                 dilation: int = 1, bias: bool = True):
         super().__init__(in_channels, out_channels, kernel_size,
-                         stride=stride, padding=padding)
+                         stride=stride, padding=padding, dilation=dilation,
+                         bias=bias)
         self.gain = gain
         self.compute_dtype = dtype
         self.zero_init = zero_init
@@ -246,7 +266,26 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.compute_dtype
         return self._conv_forward(x.to(d), self.weight.to(d),
-                                  self.bias.to(d))
+                                  _cast(self.bias, d))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` with fp32 parameters that computes in
+    ``dtype`` (flax ``ConvTranspose(dtype=...)``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size,
+                         stride=stride, padding=padding)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.compute_dtype
+        return F.conv_transpose2d(x.to(d), self.weight.to(d),
+                                  _cast(self.bias, d), self.stride,
+                                  self.padding, self.output_padding,
+                                  self.groups, self.dilation)
 
 
 class Linear(nn.Linear):
@@ -280,7 +319,8 @@ def ddpm_init_(module: nn.Module,
             limit = m.gain * math.sqrt(6.0 / ((w.shape[0] + w.shape[1])
                                               * area))
             nn.init.uniform_(w, -limit, limit, generator=generator)
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, nn.GroupNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
@@ -297,6 +337,38 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, x.new_zeros(()))
+
+
+def checkpoint(fn: Callable, *args,
+               generator: Optional[torch.Generator] = None):
+    """``fn(*args)`` with its activations recomputed in the backward
+    instead of kept (flax ``nn.remat``): non-reentrant, so a block whose
+    input and parameters need no gradient (a frozen level of a staged run)
+    just runs, and the others still get theirs.  ``torch.utils.checkpoint``
+    replays the global RNGs only; the draws ``fn`` makes from
+    ``generator`` (dropout masks) are replayed here: the recompute starts
+    from the generator's state at the first call and leaves it where it
+    found it, so the backward differentiates the forward's masks and later
+    draws do not shift."""
+    if generator is None:
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    start = []
+
+    def replayed(*a):
+        if not start:
+            start.append(generator.get_state())
+            return fn(*a)
+        now = generator.get_state()
+        generator.set_state(start[0])
+        try:
+            return fn(*a)
+        finally:
+            # also when the recompute stops early, once it has what the
+            # backward needs
+            generator.set_state(now)
+    return torch.utils.checkpoint.checkpoint(replayed, *args,
+                                             use_reentrant=False)
 
 
 class TimeEmbedding(nn.Module):

@@ -59,7 +59,8 @@ class ModelConfig:
     hidden_channels: int = 64
     activation: str = "gelu"
     param_conditioning: Optional[str] = None   # None | 'scalar'
-    use_bf16: bool = False    # not ported yet: must stay False
+    # bf16 compute with fp32 parameters (flax's dtype / param_dtype)
+    use_bf16: bool = False
 
 
 @dataclasses.dataclass
@@ -89,7 +90,8 @@ def build_model(cfg: Config) -> nn.Module:
         cfg.data.n_vector_components, time_history=1, time_future=1,
         activation=cfg.model.activation,
         param_conditioning=cfg.model.param_conditioning,
-        hidden_channels=cfg.model.hidden_channels)
+        hidden_channels=cfg.model.hidden_channels,
+        dtype=torch.bfloat16 if cfg.model.use_bf16 else torch.float32)
 
 
 class DeviceSplit:
@@ -138,9 +140,6 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None,
     (``{"train": ..., "valid": ...}``, each an iterable of ``(u, v, cond)``)
     replaces the files of ``cfg.data``.
     """
-    if cfg.model.use_bf16:
-        raise NotImplementedError("model.use_bf16 is not ported yet "
-                                  "(ROADMAP.md, queue A, item 7b)")
     device = resolve_device(cfg.device)
     pde = pde_config(cfg.data)
     model = build_model(cfg)

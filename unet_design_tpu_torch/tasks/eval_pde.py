@@ -8,7 +8,8 @@ that ``tasks/pde.py`` wrote, puts the split on the device, and reports the
 one-step and unrolled-rollout losses with bootstrap statistics, through the
 trainer's own ``validate_device`` at full resolution (a ``_G`` model with
 all its levels; a BatchNorm model on the running statistics that its
-checkpoint carries).  The JSON has the JAX script's keys: ``valid/``
+checkpoint carries), with the model the trainer builds: in bf16 under
+``model.use_bf16``, as the JAX script scores it.  The JSON has the JAX script's keys: ``valid/``
 renamed to ``<split>/``, plus ``checkpoint_step``.
 
     python -m unet_design_tpu_torch.tasks.eval_pde --config <yaml> \\

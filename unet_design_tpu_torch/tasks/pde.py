@@ -69,8 +69,11 @@ class ModelConfig:
     multi_res_loss: bool = False
     no_skip_connection: bool = False
     no_down_up: bool = False
-    remat: bool = False       # not ported yet: must stay False
-    use_bf16: bool = False    # not ported yet: must stay False
+    # recompute Unetbase-64_G's conv blocks in the backward (the same
+    # function, less memory kept)
+    remat: bool = False
+    # bf16 compute with fp32 parameters (flax's dtype / param_dtype)
+    use_bf16: bool = False
 
 
 @dataclasses.dataclass
@@ -149,10 +152,6 @@ class Config:
 def _check_ported(cfg: Config) -> None:
     """Reject what this slice of the port does not implement yet."""
     todo = "is not ported yet (ROADMAP.md, queue A: {})"
-    if cfg.model.use_bf16:
-        raise NotImplementedError("model.use_bf16 " + todo.format("use_bf16"))
-    if cfg.model.remat:
-        raise NotImplementedError("model.remat " + todo.format("remat"))
     p = cfg.parallel
     if max(p.data, p.model, p.spatial, p.num_processes) > 1:
         raise NotImplementedError("parallel.* > 1 " + todo.format(
@@ -165,14 +164,18 @@ def pde_config(cfg: DataConfig) -> pde_data.PDEDataConfig:
 
 
 def build_model(cfg: Config) -> nn.Module:
+    """The registry model in the config's compute dtype (bf16 under
+    ``model.use_bf16``, parameters fp32), with ``remat`` for
+    ``Unetbase-64_G`` (JAX ``pde.py:174-185``)."""
     mc = cfg.model
-    overrides = dict(hidden_channels=mc.hidden_channels)
+    overrides = dict(hidden_channels=mc.hidden_channels,
+                     dtype=torch.bfloat16 if mc.use_bf16 else torch.float32)
     if mc.name == "Unetbase-64_G":
         overrides.update(dwt_encoder=mc.dwt_encoder, up_fct=mc.up_fct,
                          n_extra_resnet_layers=mc.n_extra_resnet_layers,
                          multi_res_loss=mc.multi_res_loss, sequ_mode=True,
                          no_skip_connection=mc.no_skip_connection,
-                         no_down_up=mc.no_down_up)
+                         no_down_up=mc.no_down_up, remat=mc.remat)
     return registry.build_model(
         mc.name, cfg.data.n_scalar_components, cfg.data.n_vector_components,
         cfg.data.time_history, cfg.data.time_future, mc.activation,

@@ -75,8 +75,11 @@ class ModelConfig:
     multi_res_loss: bool = False
     no_skip_connection: bool = False
     no_down_up: bool = False
-    remat: bool = False       # not ported yet: must stay False
-    use_bf16: bool = False    # not ported yet: must stay False
+    # recompute each conv block in the backward (the same function, less
+    # memory kept)
+    remat: bool = False
+    # bf16 compute with fp32 parameters (flax's dtype / param_dtype)
+    use_bf16: bool = False
 
 
 @dataclasses.dataclass
@@ -121,10 +124,6 @@ class Config:
 def _check_ported(cfg: Config) -> None:
     """Reject what this slice of the port does not implement yet."""
     todo = "is not ported yet (ROADMAP.md, queue A, item {})"
-    if cfg.model.use_bf16:
-        raise NotImplementedError("model.use_bf16 " + todo.format("7b"))
-    if cfg.model.remat:
-        raise NotImplementedError("model.remat " + todo.format("7c"))
     p = cfg.parallel
     if max(p.data, p.model, p.spatial, p.num_processes) > 1:
         raise NotImplementedError("parallel.* > 1 " + todo.format("7e"))
@@ -159,7 +158,9 @@ def build_model(cfg: Config) -> WMHSegUnet:
         n_extra_resnet_layers=m.n_extra_resnet_layers,
         multi_res_loss=m.multi_res_loss,
         sequ_mode=len(cfg.train.num_epochs_list) > 1,
-        no_skip_connection=m.no_skip_connection, no_down_up=m.no_down_up)
+        no_skip_connection=m.no_skip_connection, no_down_up=m.no_down_up,
+        remat=m.remat,
+        dtype=torch.bfloat16 if m.use_bf16 else torch.float32)
 
 
 Downsample = Optional[Callable[[torch.Tensor], torch.Tensor]]
@@ -440,7 +441,9 @@ def evaluate(cfg: Config, predict_fn, params: Mapping[str, torch.Tensor],
         x, y = _downsample_pair(downsample, x, y)
         p = predict_fn(params, x)
         losses.append(losses_lib.dice_coef_loss(p, y))
-        preds.append(p.cpu().numpy())
+        # a bf16 output widens to fp32 exactly, so the sweep thresholds
+        # the values JAX thresholds (its bf16 array against float64)
+        preds.append(p.float().cpu().numpy())
         targets.append(y.cpu().numpy())
     probs = np.concatenate(preds)
     tgts = np.concatenate(targets)
