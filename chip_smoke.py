@@ -144,13 +144,30 @@ prints no result line); each prints its seconds:
    staged, 2 steps a stage on ``synthetic_wmh(64)``, 18 launches (the
    stage downsample of image and mask); the ``Unetbase-64`` bf16 forward
    at phase 5's protocol beside phase 5's fp32 time; the conditioned
-   yaml's ``Unetmod-64`` in bf16, 2 steps and one validation.
+   yaml's ``Unetmod-64`` in bf16, 2 steps and one validation;
+13. data parallelism (``parallel.data=2``): two ranks started by
+   ``mesh.launch`` share the card over gloo (NCCL refuses two ranks on one
+   device) and train, through the normal entry points with TF32 off, the
+   arms that one rank in this process trains on the same seed and
+   batches: phase 12's fp32 ``Unetbase-64_G`` (hidden 64, 128x128, global
+   batch 8 = 4 a rank, 2 stages of 3 steps, DWT encoder, multi-res loss,
+   freezing), every logged loss and validation within 1e-4 (relative);
+   the CIFAR yaml's ``MultiResUNet`` (ch 128, bf16, global batch 128,
+   dropout 0.1, host batches: ``data.device_cache=false``, 2 stages of 2
+   steps), its losses and gradient norms within 0.03 of their scale, then
+   one sharded ``evaluate`` of 64 DPM-Solver-20 images (rank 0 scores,
+   IS finite and flagged untrusted); the WMH yaml's ``WMHSegUnet``
+   (200x200, global batch 32, one epoch of 3 steps, multi-res Dice) within
+   5e-4; each rank's Haar launches equal to one rank's (6, 2, 0); then the
+   group helpers over NCCL, one rank a card (two where two cards are
+   visible), against what they must give.  Each arm's steps/s is printed,
+   marked as two ranks sharing one card (not a scaling figure).
 
 Kernel launches are counted on each training path alone (the count is set
 to 0 just before it and read just after) and printed per path; the
-kernels' JSON record carries their sum, phase 11's streamed path and
-phase 12's bf16 / remat paths among them.  The line before the last is
-``nvidia-smi``'s name and power limit; the one before that, the kernels'
+kernels' JSON record carries their sum, phase 11's streamed path,
+phase 12's bf16 / remat paths and phase 13's ranks among them.  The line
+before the last is ``nvidia-smi``'s name and power limit; the one before that, the kernels'
 JSON record; the last line, ``{"ok": true, "device": {...}}``.  Imports
 nothing of JAX.
 """
@@ -2011,6 +2028,200 @@ def phase_bf16(device, fp32_forward_ms: float) -> int:
     return launches
 
 
+PAR_TOL = 1e-4            # phase 13: fp32 two ranks against one
+PAR_WMH_TOL = 5e-4
+PAR_EVAL_IMAGES = 64
+PAR_WMH_SLICES = 107      # 96 training slices (3 steps of 32), 11 valid
+
+
+def _par_configs(root: str, data: int) -> dict:
+    """Phase 13's arms at ``parallel.data=data``: phase 12's fp32
+    ``Unetbase-64_G`` run (2 stages of 3 steps, batch 8), the CIFAR yaml's
+    ``MultiResUNet`` (bf16, dropout 0.1, batch 128) from host batches for
+    2 stages of 2 steps, and the WMH yaml's model at 200x200, batch 32,
+    one epoch of 3 steps with the multi-res Dice loss."""
+    pde_cfg = _bf16_slice_config(os.path.join(root, f"pde_dp{data}"),
+                                 False, False)
+    cifar = _ddpm_config(os.path.join(root, f"cifar_dp{data}"), 0, None)
+    t = cifar.train
+    t.num_iterations_list, t.stop_after_steps, t.eval_step = [2, 2], 0, 0
+    cifar.data.device_cache = False
+    wmh_cfg = _wmh_config(os.path.join(root, f"wmh_dp{data}"), 0)
+    wmh_cfg.data.synthetic_size = PAR_WMH_SLICES
+    wmh_cfg.train.num_epochs_list, wmh_cfg.train.stop_after_epochs = [1], 0
+    wmh_cfg.train.freeze_lower_res = False
+    arms = {"pde": ("pde", pde_cfg), "cifar": ("diff_cifar", cifar),
+            "wmh": ("wmh", wmh_cfg)}
+    for _, cfg in arms.values():
+        cfg.parallel.data = data
+    return arms
+
+
+def _par_train(arms: dict, group) -> dict:
+    """Train each arm (in ``group``'s ranks, or alone with None): seconds,
+    Haar launches and, for the CIFAR arm, one evaluation of
+    ``PAR_EVAL_IMAGES`` DPM-Solver-20 samples."""
+    import importlib
+    from unet_design_tpu_torch.ops import haar
+    from unet_design_tpu_torch.process import diffusion
+    from unet_design_tpu_torch.tasks import diff_cifar
+    from unet_design_tpu_torch.train import trainer
+    out = {}
+    for name, (task, cfg) in arms.items():
+        torch.cuda.synchronize()
+        haar.launches = 0   # this arm's training path starts here
+        t0 = time.perf_counter()
+        state = importlib.import_module(
+            f"unet_design_tpu_torch.tasks.{task}").train(cfg)
+        torch.cuda.synchronize()
+        out[name] = {"secs": time.perf_counter() - t0,
+                     "launches": haar.launches}   # ... and ends here
+        if name == "cifar":
+            # the last stage's levels and resolution (2 levels at 8x8)
+            d, dev = cfg.diffusion, next(state.model.parameters()).device
+            sch = diffusion.DDPMSchedule.create(d.beta_1, d.beta_T,
+                                                d.T).to(dev)
+            t0 = time.perf_counter()
+            out[name]["eval"] = diff_cifar.evaluate(
+                cfg, state.model, state.ema, sch, 2, 8,
+                num_images=PAR_EVAL_IMAGES,
+                generator=trainer.seeded_generator(dev, cfg.train.seed,
+                                                   20_000), group=group)
+            out[name]["eval_secs"] = time.perf_counter() - t0
+    return out
+
+
+def _par_rank(arms: dict) -> list:
+    """What each of phase 13's two ranks runs; every rank's results."""
+    import torch.distributed as dist
+    from unet_design_tpu_torch.parallel import mesh
+    group = mesh.task_group(mesh.ParallelConfig(data=2),
+                            torch.device(arms["pde"][1].device))
+    out = {"rank": group.rank, "device": str(group.device),
+           "backend": dist.get_backend(), **_par_train(arms, group)}
+    gathered = [None] * group.world
+    dist.all_gather_object(gathered, out)
+    return gathered
+
+
+def _nccl_rank() -> dict:
+    """The group helpers over NCCL: the flat gradient all-reduce, the
+    autograd all-reduce of a sharded batch, the row gather, ``any`` and a
+    barrier, each against what it must give."""
+    import torch.distributed as dist
+    from unet_design_tpu_torch.parallel import mesh
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    group = mesh.Group(rank, world, rank, world, dev)
+    grads = [torch.full((3, 2), rank + 1.0, device=dev),
+             torch.arange(5.0, device=dev) * (rank + 1)]
+    group.all_reduce_grads_(grads)
+    mean = (world + 1) / 2
+    t = torch.tensor([1.0, 2.0], device=dev, requires_grad=True)
+    with mesh.sharded_batch(group):
+        s = mesh.batch_sum(t * (rank + 1))
+        s.sum().backward()
+    gathered = group.gather_rows(torch.full((2, 3), float(rank), device=dev))
+    ok = (torch.equal(grads[0], torch.full((3, 2), mean, device=dev))
+          and torch.equal(grads[1], torch.arange(5.0, device=dev) * mean)
+          and torch.equal(s.detach(), torch.tensor(
+              [1.0, 2.0], device=dev) * world * (world + 1) / 2)
+          and torch.equal(t.grad, torch.full((2,), float(world) * (rank + 1),
+                                             device=dev))
+          and torch.equal(gathered, torch.arange(world, device=dev).float()
+                          .repeat_interleave(2)[:, None].expand(-1, 3))
+          and group.any(rank == world - 1) and not group.any(False))
+    group.barrier()
+    return {"backend": dist.get_backend(), "world": world, "ok": bool(ok)}
+
+
+def _par_records(logdir: str, keys: tuple) -> dict:
+    records = _records(logdir)
+    return {k: [r[k] for r in records if k in r] for k in keys}
+
+
+def _par_arms(configs=_par_configs) -> int:
+    """Phase 13's two ranks against one on ``configs``' arms; returns the
+    ranks' Haar launches."""
+    from unet_design_tpu_torch.parallel import mesh
+    root = os.path.join(HERE, "runs", "chip_smoke_parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    single = _par_train(configs(root, 1), None)
+    torch.cuda.empty_cache()   # the ranks share the card with this process
+    single_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = mesh.launch(_par_rank, configs(root, 2),
+                        parallel=mesh.ParallelConfig(data=2),
+                        device="cuda", backend="gloo")
+    ranks_s = time.perf_counter() - t0
+    log(f"[parallel] two ranks on {[r['device'] for r in ranks]} over "
+        f"{ranks[0]['backend']} (two ranks sharing one card: not a "
+        f"scaling figure), {ranks_s:.1f} s with their start; one rank "
+        f"{single_s:.1f} s; on {card_line()}")
+    keys = {"pde": ("train/loss_mean", "valid/loss/mse",
+                    "valid/unrolled_loss_mean"),
+            "cifar": ("train/loss", "train/grad_norm"),
+            "wmh": ("train/loss", "valid/loss", "test/loss")}
+    sps = ("train/steps_per_sec",)
+    for arm in keys:
+        one = _par_records(os.path.join(root, f"{arm}_dp1"), keys[arm] + sps)
+        two = _par_records(os.path.join(root, f"{arm}_dp2"), keys[arm] + sps)
+        log(f"[parallel] {arm}: steps/s one rank {one['train/steps_per_sec']}"
+            f", two ranks on one card {two['train/steps_per_sec']}; "
+            f"seconds one rank {single[arm]['secs']:.2f}, two ranks "
+            f"{[round(r[arm]['secs'], 2) for r in ranks]}; Haar launches "
+            f"one rank {single[arm]['launches']}, ranks "
+            f"{[r[arm]['launches'] for r in ranks]}")
+        for k in keys[arm]:
+            a, b = np.asarray(two[k]), np.asarray(one[k])
+            if arm == "cifar":   # bf16: the smoke's bf16 check
+                tol = BF16_TOL * float(np.abs(b).max())
+                bad = a.shape != b.shape or np.abs(a - b).max() > tol
+            else:
+                rtol = PAR_WMH_TOL if arm == "wmh" else PAR_TOL
+                bad = a.shape != b.shape or not np.allclose(a, b, rtol=rtol,
+                                                            atol=0)
+            log(f"[parallel] {arm} {k}: two ranks {a.tolist()} one rank "
+                f"{b.tolist()}")
+            if bad or not len(b) or not np.isfinite(a).all():
+                raise AssertionError(f"phase 13 {arm} {k}: {a} vs {b}")
+    # each rank launches the kernel as one rank does: PDE 3 a stage,
+    # CIFAR 2 in stage 1, none in the WMH arm's one stage
+    for arm, want in (("pde", 6), ("cifar", 2), ("wmh", 0)):
+        if single[arm]["launches"] != want or any(
+                r[arm]["launches"] != want for r in ranks):
+            raise AssertionError(f"{arm} Haar launches: {single}, {ranks}")
+    scores = ranks[0]["cifar"]["eval"]
+    log(f"[parallel] sharded evaluate of {PAR_EVAL_IMAGES} images: rank 0 "
+        f"{scores} in {ranks[0]['cifar']['eval_secs']:.1f} s, rank 1 "
+        f"{ranks[1]['cifar']['eval']}; one rank {single['cifar']['eval']}")
+    if (ranks[1]["cifar"]["eval"] != {} or not np.isfinite(scores["IS"])
+            or scores.get("untrusted_random_inception_weights") != 1.0):
+        raise AssertionError(f"sharded evaluate: {scores}")
+    shutil.rmtree(root, ignore_errors=True)
+    return sum(r[a]["launches"] for r in ranks for a in keys)
+
+
+def phase_parallel() -> int:
+    """Phase 13: data parallelism on the card (see the module's
+    docstring); returns the Haar launches of the two ranks' training."""
+    from unet_design_tpu_torch.parallel import mesh
+    launches = _par_arms()
+    n = min(2, torch.cuda.device_count())
+    t0 = time.perf_counter()
+    nccl = mesh.launch(_nccl_rank, parallel=mesh.ParallelConfig(data=n),
+                       device="cuda")
+    log(f"[parallel] NCCL group of {nccl['world']} rank(s), one a card "
+        f"({torch.cuda.device_count()} visible): gradient all-reduce, "
+        f"autograd all-reduce, gather, any, barrier "
+        f"{'agree' if nccl['ok'] else 'DISAGREE'} "
+        f"({time.perf_counter() - t0:.1f} s with its start)")
+    if nccl["backend"] != "nccl" or not nccl["ok"]:
+        raise AssertionError(f"NCCL helpers: {nccl}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2040,13 +2251,16 @@ def main() -> int:
     timed("cond", phase_cond)
     stream_launches = timed("stream", phase_stream, sw_data)
     bf16_launches = timed("bf16", phase_bf16, device, fp32_forward_ms)
+    par_launches = timed("parallel", phase_parallel)
     log(f"[launches] haar_pyramid per path: PDE staged training "
         f"{pde_launches}, DDPM staged training {ddpm_launches}, VP staged "
         f"training {mnist_launches}, WMH staged training {wmh_launches}, "
         f"PDE streamed training {stream_launches}, bf16 / remat PDE and "
-        f"WMH training {bf16_launches}")
+        f"WMH training {bf16_launches}, data-parallel ranks' training "
+        f"{par_launches}")
     record["launches"] = (pde_launches + ddpm_launches + mnist_launches
-                          + wmh_launches + stream_launches + bf16_launches)
+                          + wmh_launches + stream_launches + bf16_launches
+                          + par_launches)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [record]}))
     print(card_line())

@@ -549,3 +549,59 @@ def test_streamed_training_on_the_card(cuda, tmp_path):
     assert launches["staged"] == launches["streamed"] == 4
     np.testing.assert_allclose(losses["streamed"], losses["staged"],
                                rtol=1e-4)
+
+
+def _small_pde(tmp_path, name, data):
+    from unet_design_tpu_torch.tasks import pde
+    cfg = pde.Config()
+    cfg.data.resolution = 16
+    cfg.data.trajlen = 6
+    cfg.data.n_synthetic = 4
+    cfg.data.batch_size = 2
+    cfg.data.max_num_steps = 2
+    cfg.data.train_cycles = 1
+    cfg.model.hidden_channels = 8
+    cfg.model.dwt_encoder = True
+    cfg.model.multi_res_loss = True
+    cfg.train.num_epochs_list = [1, 1]
+    cfg.train.freeze_lower_res = True
+    cfg.train.logdir = str(tmp_path / name)
+    cfg.parallel.data = data
+    return cfg
+
+
+def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
+    """``parallel.data=2`` on one card (two ranks over gloo: NCCL refuses
+    two ranks on one device): the tiny staged Multi-ResNet's logged series
+    against one rank's at rtol 2e-4."""
+    import _torch_parallel_runs as runs
+    from unet_design_tpu_torch.parallel import mesh
+    from unet_design_tpu_torch.tasks import pde
+    pde.train(_small_pde(tmp_path, "one", 1))
+    two = _small_pde(tmp_path, "two", 2)
+    out = mesh.launch(runs.run_arms, {"pde": ("pde", two, None)},
+                      parallel=mesh.ParallelConfig(data=2), device="cuda",
+                      backend="gloo")
+    assert out["pde"] == 4   # 2 epochs of 2 steps
+
+    def series(name):
+        with open(tmp_path / name / "metrics.jsonl") as f:
+            recs = [json.loads(l) for l in f]
+        return {k: [r[k] for r in recs if k in r]
+                for k in ("train/loss_mean", "valid/loss/mse",
+                          "valid/unrolled_loss_mean")}
+    one, got = series("one"), series("two")
+    for k in one:
+        assert len(one[k]) == 2, k
+        np.testing.assert_allclose(got[k], one[k], rtol=2e-4, err_msg=k)
+
+
+def test_nccl_group_helpers(cuda):
+    """The group helpers over NCCL, one rank a card (two where two cards
+    are visible): ``chip_smoke.py``'s phase-13 check."""
+    import chip_smoke
+    from unet_design_tpu_torch.parallel import mesh
+    n = min(2, torch.cuda.device_count())
+    out = mesh.launch(chip_smoke._nccl_rank,
+                      parallel=mesh.ParallelConfig(data=n), device="cuda")
+    assert out == {"backend": "nccl", "world": n, "ok": True}

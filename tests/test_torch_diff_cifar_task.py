@@ -256,8 +256,8 @@ def test_flips_and_synthetic_data():
     np.testing.assert_array_equal(labels, jlabels)
     assert x.shape == (16, 32, 32, 3) and x.dtype == np.float32
     np.testing.assert_array_equal(
-        timage.random_horizontal_flip(torch.from_numpy(x),
-                                      np.random.default_rng((0, 5))).numpy(),
+        timage.horizontal_flip(torch.from_numpy(x), np.random.default_rng(
+            (0, 5)).random(len(x)) < 0.5).numpy(),
         jimage.random_horizontal_flip(jx, np.random.default_rng((0, 5))))
 
 
@@ -341,8 +341,8 @@ def test_run_config_save_and_restore(tmp_path):
         tconfig.resolve_run_dir(str(tmp_path / "missing"))
 
 
-@pytest.mark.parametrize("override", ["parallel.data=2",
-                                      "data.device_cache=false"])
+@pytest.mark.parametrize("override", ["parallel.model=2",
+                                      "parallel.spatial=2"])
 def test_unported_options_raise(tmp_path, override):
     cfg = tconfig.parse_cli(tdc.Config, [override, "device=cpu",
                                          f"train.logdir={tmp_path}"])

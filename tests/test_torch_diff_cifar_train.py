@@ -85,7 +85,8 @@ def test_staged_training_matches_jax(tmp_path, monkeypatch):
         return {"IS": float(len(jcalls))}
 
     def port_evaluate(cfg, model, ema, sch, n_levels_used, resolution, *,
-                      generator):
+                      generator, group=None):
+        assert group is None   # parallel.data=1
         tcalls.append(({k: v.clone() for k, v in ema.items()},
                        n_levels_used, resolution, generator.initial_seed()))
         return {"IS": float(len(tcalls))}

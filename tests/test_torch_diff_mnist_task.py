@@ -97,8 +97,8 @@ def test_figures_need_matplotlib(override, monkeypatch):
     tdm.check_config(tconfig.parse_cli(tdm.Config, []))
 
 
-@pytest.mark.parametrize("override", ["parallel.data=2",
-                                      "data.device_cache=false",
+@pytest.mark.parametrize("override", ["parallel.model=2",
+                                      "parallel.spatial=2",
                                       "data.dataset=celeba"])
 def test_unported_options_raise(tmp_path, override):
     cfg = tconfig.parse_cli(tdm.Config, [override, "device=cpu",

@@ -211,7 +211,7 @@ def test_unknown_config_key_raises():
         tconfig.parse_cli(tpde.Config, ["train.no_such_key=1"])
 
 
-@pytest.mark.parametrize("override", ["parallel.data=2"])
+@pytest.mark.parametrize("override", ["parallel.model=2"])
 def test_unported_options_raise(tmp_path, override):
     cfg = tconfig.parse_cli(tpde.Config, [override, "device=cpu",
                                           f"train.logdir={tmp_path}"])

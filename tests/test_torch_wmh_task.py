@@ -309,7 +309,8 @@ def test_config_and_options():
                                                           "train.seed=2"]))
     assert ours.pop("device") == "cuda"
     assert ours == ref
-    for override, item in (("parallel.data=2", "7e"),):
+    for override, item in (("parallel.model=2", "7f"),
+                           ("parallel.spatial=2", "7f")):
         cfg = tconfig.parse_cli(twmh.Config, [override, "device=cpu"])
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             twmh.train(cfg)

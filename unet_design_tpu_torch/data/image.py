@@ -109,10 +109,9 @@ def synthetic_cifar10(n: int = 256, seed: int = 0
     return x, rng.integers(0, 10, n).astype(np.int64)
 
 
-def random_horizontal_flip(x: torch.Tensor,
-                           rng: np.random.Generator) -> torch.Tensor:
-    """Per-sample horizontal flip of an NHWC batch with p = 0.5
-    (torchvision semantics), on ``x``'s device; the coin flips come from
-    ``rng``, the draws of the JAX package's numpy flip."""
-    flip = torch.as_tensor(rng.random(x.shape[0]) < 0.5, device=x.device)
+def horizontal_flip(x: torch.Tensor, flip: np.ndarray) -> torch.Tensor:
+    """Per-sample horizontal flip of an NHWC batch, on ``x``'s device: the
+    rows where ``flip`` is true.  The JAX package's numpy flip (p = 0.5,
+    torchvision semantics) is ``flip = rng.random(len(x)) < 0.5``."""
+    flip = torch.as_tensor(flip, device=x.device)
     return torch.where(flip[:, None, None, None], x.flip(2), x)

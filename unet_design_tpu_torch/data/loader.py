@@ -56,8 +56,11 @@ def infinite_batches(arrays: Sequence[np.ndarray], batch_size: int,
 def shard_for_process(items: Sequence[Any], process_index: int = 0,
                       process_count: int = 1) -> list:
     """Every ``process_count``-th item from ``process_index`` on, the
-    reference's per-rank file split (``datapipes/shallowwater2d.py:68-87``).
-    The port runs one process until data parallelism is ported."""
+    reference's per-rank file split (``datapipes/shallowwater2d.py:68-87``),
+    keyed on the host as the JAX package keys it on
+    ``jax.process_index()``: the PDE trainer passes
+    ``parallel.process_id`` / ``num_processes``, so each host opens its
+    stride of the files and, on one host, every rank opens them all."""
     return list(itertools.islice(items, process_index, None, process_count))
 
 

@@ -31,12 +31,15 @@ import torch.nn.functional as F
 
 from unet_design_tpu_torch.models import common
 from unet_design_tpu_torch.ops import blocks
+from unet_design_tpu_torch.parallel import mesh
 
 
 class BatchNorm(nn.Module):
     """flax's ``nn.BatchNorm`` over NCHW (statistics over N, H, W, in fp32;
     eps 1e-5; momentum 0.99): ``weight`` / ``bias`` are flax's ``scale`` /
-    ``bias``, ``running_mean`` / ``running_var`` its ``mean`` / ``var``."""
+    ``bias``, ``running_mean`` / ``running_var`` its ``mean`` / ``var``.
+    In a data-parallel step the statistics are the global batch's, as
+    GSPMD computes them (``mesh.batch_mean``, with its gradient)."""
 
     def __init__(self, channels: int, momentum: float = 0.99,
                  eps: float = 1e-5):
@@ -51,7 +54,10 @@ class BatchNorm(nn.Module):
         xf = x.float()     # the output stays fp32 (flax's dtype=float32)
         if self.training:
             mean = xf.mean(dim=(0, 2, 3))
-            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0)
+            sq = (xf * xf).mean(dim=(0, 2, 3))
+            if mesh.batch_group() is not None:
+                mean, sq = mesh.batch_mean(torch.stack([mean, sq]))
+            var = (sq - mean * mean).clamp_min(0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)

@@ -48,6 +48,7 @@ import torch.utils.checkpoint
 
 from unet_design_tpu_torch.ops.embeddings import ddpm_time_embedding
 from unet_design_tpu_torch.ops.spectral import SpectralConv2d
+from unet_design_tpu_torch.parallel import mesh
 
 ACTIVATIONS: dict = {
     "relu": F.relu,
@@ -331,11 +332,13 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
             ) -> torch.Tensor:
     """flax ``nn.Dropout`` in training: keep with probability ``1 - rate``
     and scale by its inverse; the mask comes from ``generator``, so a
-    resumed run draws the same masks."""
+    resumed run draws the same masks (in a data-parallel step, the global
+    batch's mask, of which a rank keeps its rows)."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = mesh.draw_rows(lambda shape: torch.rand(
+        shape, generator=generator, device=x.device), x.shape) < keep
     return torch.where(mask, x / keep, x.new_zeros(()))
 
 

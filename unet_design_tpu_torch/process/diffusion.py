@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from unet_design_tpu_torch.ops import wavelet
+from unet_design_tpu_torch.parallel import mesh
 
 ModelFn = Callable[..., Union[torch.Tensor, List[torch.Tensor]]]
 
@@ -151,8 +152,8 @@ def _step_noise(noises: Optional[Sequence[torch.Tensor]], i: int,
                 ) -> torch.Tensor:
     if noises is not None:
         return noises[i]
-    return torch.randn(x.shape, generator=generator, device=x.device,
-                       dtype=x.dtype)
+    return mesh.draw_rows(lambda shape: torch.randn(
+        shape, generator=generator, device=x.device, dtype=x.dtype), x.shape)
 
 
 @torch.no_grad()

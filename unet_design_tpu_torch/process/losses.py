@@ -12,6 +12,8 @@ from typing import Callable, List, Union
 
 import torch
 
+from unet_design_tpu_torch.parallel import mesh
+
 
 def _reduce(val: torch.Tensor, reduction: str) -> torch.Tensor:
     if reduction == "mean":
@@ -44,11 +46,15 @@ def custom_mse_loss(pred: torch.Tensor, target: torch.Tensor,
 def dice_coef(pred: torch.Tensor, target: torch.Tensor,
               smooth: float = 1.0) -> torch.Tensor:
     """Soft Dice coefficient over the whole flattened batch
-    (``wmh/train_pt.py:102-108``)."""
+    (``wmh/train_pt.py:102-108``); in a data-parallel step its three sums
+    run over the global batch (``mesh.batch_sum``)."""
     p = pred.reshape(-1)
     t = target.reshape(-1)
-    intersection = (p * t).sum()
-    return (2.0 * intersection + smooth) / (p.sum() + t.sum() + smooth)
+    intersection, p_sum, t_sum = (p * t).sum(), p.sum(), t.sum()
+    if mesh.batch_group() is not None:
+        intersection, p_sum, t_sum = mesh.batch_sum(
+            torch.stack([intersection, p_sum, t_sum]))
+    return (2.0 * intersection + smooth) / (p_sum + t_sum + smooth)
 
 
 def dice_coef_loss(pred: torch.Tensor, target: torch.Tensor,

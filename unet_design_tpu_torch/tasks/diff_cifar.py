@@ -1,4 +1,5 @@
-"""diff_cifar: staged Multi-ResNet DDPM on CIFAR-10 with EMA, on one GPU.
+"""diff_cifar: staged Multi-ResNet DDPM on CIFAR-10 with EMA, on one GPU
+or data-parallel on several.
 
 Port of ``unet_design_tpu/tasks/diff_cifar.py`` (``train`` :206-496,
 ``build_model``, ``check_config``, ``make_sampler``, ``main``), itself a
@@ -10,9 +11,11 @@ the multi-resolution noise loss, checkpoints and full-fidelity resume.
 The staged step loop is :func:`~unet_design_tpu_torch.train.trainer.
 run_stages`, which the diff_mnist trainer shares.
 
-The dataset lives on the device; each step's indices come from the JAX
-package's numpy stream (``infinite_batches``) and its flips from
-``default_rng((seed, step))``, so both trainers see the same batches.  Each
+The dataset lives on the device (``data.device_cache``; else each batch
+is gathered from the numpy images on the host and copied over); each
+step's indices come from the JAX package's numpy stream
+(``infinite_batches``) and its flips from ``default_rng((seed, step))``,
+so both trainers, and both paths, see the same batches.  Each
 step's timesteps and noise come from :func:`draw_t_noise` on the stage's
 generator (seeded from ``(seed, 10_000 + stage)``, the JAX trainer's
 ``fold_in``; one draw a step, as the JAX stream splits once a step), and
@@ -37,9 +40,10 @@ without training (:func:`test_eval`).  Without ``train.fid_weights`` (the
 ``pt_inception`` ``.pth``) the scores come from a random Inception and
 carry ``untrusted_random_inception_weights``.
 
-Not ported yet (``NotImplementedError``, ``ROADMAP.md`` queue A):
-``parallel.*`` > 1 and the host batches that serve it
-(``data.device_cache=false``).
+With ``parallel.data=N`` (``parallel/mesh.py``) each of N ranks takes its
+rows of every global batch, its rows of the global draws and flips, and
+the gradients are averaged over the ranks; the evaluation samples its rows
+of each sampling batch and rank 0 scores the gathered images.
 
 Run: ``python -m unet_design_tpu_torch.tasks.diff_cifar --config <yaml>
 [k=v ...]``.
@@ -57,10 +61,12 @@ import numpy as np
 import torch
 
 from unet_design_tpu_torch.data import image as image_data
+from unet_design_tpu_torch.data import loader as loader_lib
 from unet_design_tpu_torch.evalx.fid import FIDEvaluator
 from unet_design_tpu_torch.evalx.inception import load_fid_params
 from unet_design_tpu_torch.models.multires_unet import MultiResUNet
 from unet_design_tpu_torch.ops import blocks, haar
+from unet_design_tpu_torch.parallel import mesh
 from unet_design_tpu_torch.parallel.mesh import ParallelConfig
 from unet_design_tpu_torch.process import diffusion
 from unet_design_tpu_torch.train import freezing, schedules, trainer
@@ -108,7 +114,8 @@ class DataConfig:
     root: str = "./datasets/cifar10"
     batch_size: int = 128
     synthetic_size: int = 512
-    device_cache: bool = True    # must stay True (device-resident path)
+    # the images on the device; false gathers each batch on the host
+    device_cache: bool = True
 
 
 @dataclasses.dataclass
@@ -217,28 +224,17 @@ def check_config(cfg: Config) -> None:
         visualization.require_matplotlib("train.sample_step")
 
 
-def _check_ported(cfg: Config) -> None:
-    """Reject what this slice of the port does not implement yet."""
-    todo = "is not ported yet (ROADMAP.md, queue A: {})"
-    p = cfg.parallel
-    if max(p.data, p.model, p.spatial, p.num_processes) > 1:
-        raise NotImplementedError("parallel.* > 1 " + todo.format(
-            "data parallelism"))
-    if not cfg.data.device_cache:
-        raise NotImplementedError(
-            "data.device_cache=false (host batches, which only data "
-            "parallelism needs) " + todo.format("data parallelism"))
-
-
 def draw_t_noise(generator: torch.Generator, x0: torch.Tensor, T: int,
                  step: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Global step ``step``'s timesteps ``(B,)`` and noise (``x0``'s shape)
-    from the stage's generator.  ``step`` is not used here; it lets a test
-    put in its place a function that replays another stream."""
-    t = torch.randint(0, T, (x0.shape[0],), generator=generator,
-                      device=x0.device)
-    noise = torch.randn(x0.shape, generator=generator, device=x0.device,
-                        dtype=x0.dtype)
+    from the stage's generator (in a data-parallel step, this rank's rows
+    of the global draws).  ``step`` is not used here; it lets a test put in
+    its place a function that replays another stream."""
+    t = mesh.draw_rows(lambda shape: torch.randint(
+        0, T, shape, generator=generator, device=x0.device), (x0.shape[0],))
+    noise = mesh.draw_rows(lambda shape: torch.randn(
+        shape, generator=generator, device=x0.device, dtype=x0.dtype),
+        x0.shape)
     return t, noise
 
 
@@ -257,12 +253,19 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
 
     ``params``, a ``state_dict`` (for instance from
     ``models.convert.flax_to_state_dict``), replaces the fresh init.
+    With ``parallel.data`` > 1 this starts (or joins) the ranks and returns
+    rank 0's state.
     """
-    _check_ported(cfg)        # before a train_id's run is looked up
+    mesh.check_axes(cfg.parallel)   # before a train_id's run is looked up
     cfg = config_lib.restore_run_config(cfg)
     check_config(cfg)
-    _check_ported(cfg)        # what a restored run's config asks for
+    if mesh.needs_launch(cfg.parallel):
+        return trainer.launch(train, cfg, params, lambda: build_model(cfg))
     device = resolve_device(cfg.device)
+    group = mesh.task_group(cfg.parallel, device)
+    mesh.check_batch_divisible(group, cfg.data.batch_size,
+                               "data.batch_size")
+    device = group.device if group else device
     tc = cfg.train
     data = load_data(cfg.data)
 
@@ -278,12 +281,15 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
     named = dict(model.named_parameters())
     ema = {n: p.detach().clone() for n, p in named.items()}
 
-    metrics = MetricsLogger(tc.logdir)
-    config_lib.save_yaml(cfg, os.path.join(tc.logdir, "config.yaml"))
+    metrics = MetricsLogger(tc.logdir, mesh.is_main(group))
+    if mesh.is_main(group):
+        config_lib.save_yaml(cfg, os.path.join(tc.logdir, "config.yaml"))
     stages = trainer.StageSpec.from_schedule(tc.num_iterations_list,
                                              n_levels)
     sequ = len(stages) > 1
-    data_dev = torch.from_numpy(data).to(device)
+    data_dev = (torch.from_numpy(data).to(device) if cfg.data.device_cache
+                else None)
+    rows = group.rows(cfg.data.batch_size) if group else slice(None)
 
     def labels_fn(spec):
         return (freezing.multires_unet_labels(named, n_levels,
@@ -292,10 +298,15 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
                 else freezing.all_train_labels(named))
 
     def batch_fn(idx, step):
-        # stateless per-step flips: the same under resume
-        return image_data.random_horizontal_flip(
-            data_dev[torch.as_tensor(idx, device=device)],
-            np.random.default_rng((tc.seed, step)))
+        # stateless per-step flips of the global batch (this rank's rows):
+        # the same under resume
+        flip = np.random.default_rng((tc.seed, step)).random(
+            cfg.data.batch_size)[rows] < 0.5
+        if data_dev is None:
+            x = loader_lib.to_device([data[idx]], device)[0]
+        else:
+            x = data_dev[torch.as_tensor(idx, device=device)]
+        return image_data.horizontal_flip(x, flip)
 
     def loss_fn(stage, x0, step):
         gen = stage.generator
@@ -309,7 +320,8 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
             pyramid_fn=haar.haar_pyramid)
 
     def on_step(stage, x0, step):
-        if tc.sample_step and step % tc.sample_step == 0:
+        if (tc.sample_step and step % tc.sample_step == 0
+                and mesh.is_main(group)):
             _log_sample_grids(cfg, model, ema, sch, metrics, device, step,
                               stage.res, stage.spec.n_levels_used,
                               data.shape[-1])
@@ -318,7 +330,8 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
             # step), the JAX trainer's fold_in
             scores = evaluate(cfg, model, ema, sch, stage.spec.n_levels_used,
                               stage.res, generator=trainer.seeded_generator(
-                                  device, tc.seed, 20_000 + step))
+                                  device, tc.seed, 20_000 + step),
+                              group=group)
             metrics.log({f"eval/{k}": v for k, v in scores.items()}, step)
 
     # a fresh Adam and warmup every stage (main.py:374-377); the EMA covers
@@ -331,7 +344,8 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
         lr_at=schedules.warmup_lr(tc.lr, tc.warmup),
         on_update=lambda stage: ema_update(ema, named, tc.ema_decay,
                                            stage.keep),
-        on_step=on_step, extra_state={"ema": ema}, stop_files=STOP_FILES)
+        on_step=on_step, extra_state={"ema": ema}, stop_files=STOP_FILES,
+        group=group)
     metrics.close()
     return trainer.TrainState(model=model, optimizer=opt, step=step, ema=ema)
 
@@ -366,7 +380,8 @@ def evaluate(cfg: Config, model: MultiResUNet,
              ema: Mapping[str, torch.Tensor], sch: diffusion.DDPMSchedule,
              n_levels_used: int, resolution: int,
              num_images: Optional[int] = None, batch_size: int = 256, *,
-             generator: torch.Generator) -> Dict[str, float]:
+             generator: torch.Generator,
+             group: Optional[mesh.Group] = None) -> Dict[str, float]:
     """Sample ``num_images`` (default ``train.num_eval_images``) images at
     ``resolution`` from the parameters ``ema`` with ``cfg``'s sampler, in
     batches of ``batch_size``, each ``x_T`` from :func:`draw_x_T` on
@@ -374,17 +389,34 @@ def evaluate(cfg: Config, model: MultiResUNet,
     them (``unet_design_tpu/tasks/diff_cifar.py:499-554``): ``IS`` and
     ``IS_std``; ``FID``, and ``KID`` / ``KID_std``, against
     ``train.fid_stats_cache``; ``untrusted_random_inception_weights`` = 1
-    when ``train.fid_weights`` names no ``.pth``."""
+    when ``train.fid_weights`` names no ``.pth``.
+
+    With a data-parallel ``group`` every rank draws each batch's ``x_T``,
+    pads it to a multiple of the ranks (the padding trimmed after), samples
+    its rows with global draws, and gathers the images; rank 0 scores them
+    and the other ranks return ``{}`` (JAX ``diff_cifar.py:501-530``)."""
     tc = cfg.train
     device = next(iter(ema.values())).device
     num_images = num_images or tc.num_eval_images
     sampler = make_sampler(cfg, model, sch, n_levels_used, ema)
+    if group is not None:
+        batch_size = max(batch_size // group.world * group.world,
+                         group.world)
     images = []
     for s in range(0, num_images, batch_size):
         b = min(batch_size, num_images - s)
         x_T = draw_x_T(generator, (b, resolution, resolution, 3), device, s)
-        images.append((sampler(x_T, generator=generator).float() + 1.0)
-                      / 2.0)
+        if group is None:
+            x0 = sampler(x_T, generator=generator)
+        else:
+            pad = (-b) % group.world
+            x_T = torch.cat([x_T, x_T[:pad]])
+            with mesh.sharded_batch(group):
+                x0 = sampler(x_T[group.rows(b + pad)], generator=generator)
+            x0 = group.gather_rows(x0.float())[:b]
+        images.append((x0.float() + 1.0) / 2.0)
+    if not mesh.is_main(group):
+        return {}
     # batch 100: the scores do not depend on it (inference BatchNorm)
     evaluator = FIDEvaluator(
         load_fid_params(tc.fid_weights) if tc.fid_weights else None,
@@ -424,7 +456,6 @@ def test_eval(cfg: Config) -> Dict[str, float]:
     if cli.train.logdir == TrainConfig().logdir:
         cfg.train.logdir = os.path.join(run_dir, "eval")
     check_config(cfg)
-    _check_ported(cfg)
     device = resolve_device(cfg.device)
     highest_res = load_data(cfg.data).shape[1]
     model = build_model(cfg).to(device)

@@ -1,5 +1,5 @@
 """diff_mnist: staged multi-resolution VP diffusion on MNIST /
-MNIST-Triangular, on one GPU.
+MNIST-Triangular, on one GPU or data-parallel on several.
 
 Port of ``unet_design_tpu/tasks/diff_mnist.py`` (``train`` :197-484,
 ``sample``, ``superres_sample``, ``unet_norm_figure``, ``test_eval``,
@@ -12,8 +12,10 @@ checkpoints, full-fidelity resume and ``train_id`` / ``test_id`` restores.
 The staged step loop is :func:`~unet_design_tpu_torch.train.trainer.
 run_stages`, which the diff_cifar trainer shares.
 
-The dataset lives on the device; each step's indices come from the JAX
-package's numpy stream (``infinite_batches``).  Each step's timesteps and
+The dataset lives on the device (``data.device_cache``; else each batch
+is gathered from the numpy images on the host and copied over); each
+step's indices come from the JAX package's numpy stream
+(``infinite_batches``).  Each step's timesteps and
 noise come from :func:`draw_t_noise` on the stage's generator (seeded from
 ``(seed, 10_000 + stage)``, one draw a step, as the JAX stream splits once
 a step); a sampler's starting noise and per-step noise from
@@ -28,9 +30,12 @@ the trainable gradients only while ``train/grad_norm`` covers all;
 ``do_superres`` with as many stages as levels logs a warning and samples
 nothing (``:456-481``).
 
+With ``parallel.data=N`` (``parallel/mesh.py``) each of N ranks takes its
+rows of every global batch and of the global draws, the gradients are
+averaged over the ranks, and rank 0 alone draws the figures.
+
 Not ported yet (``NotImplementedError``, ``ROADMAP.md`` queue A):
-``parallel.*`` > 1 and ``data.device_cache=false`` (data parallelism,
-item 7e), ``data.dataset=celeba`` (its LMDB reader, item 14a).
+``data.dataset=celeba`` (its LMDB reader, item 14a).
 
 Run: ``python -m unet_design_tpu_torch.tasks.diff_mnist --config <yaml>
 [k=v ...]``.
@@ -47,11 +52,13 @@ import numpy as np
 import torch
 
 from unet_design_tpu_torch.data import image as image_data
+from unet_design_tpu_torch.data import loader as loader_lib
 from unet_design_tpu_torch.data import triangular as tri_data
 from unet_design_tpu_torch.models.openai_unet import (ScoreNetwork,
                                                       UNetModel,
                                                       WaveletUNetOpenAI)
 from unet_design_tpu_torch.ops import blocks, haar, wavelet
+from unet_design_tpu_torch.parallel import mesh
 from unet_design_tpu_torch.parallel.mesh import ParallelConfig
 from unet_design_tpu_torch.process.diffusion import VPDiffusion
 from unet_design_tpu_torch.tasks.pde import resolve_device
@@ -100,7 +107,8 @@ class DataConfig:
     batch_size: int = 128
     to_square_preprocess: bool = False
     synthetic_size: int = 512
-    device_cache: bool = True       # must stay True (device-resident path)
+    # the images on the device; false gathers each batch on the host
+    device_cache: bool = True
 
 
 @dataclasses.dataclass
@@ -243,14 +251,7 @@ def check_config(cfg: Config) -> None:
 def _check_ported(cfg: Config) -> None:
     """Reject what this slice of the port does not implement yet."""
     todo = "is not ported yet (ROADMAP.md, queue A: {})"
-    p = cfg.parallel
-    if max(p.data, p.model, p.spatial, p.num_processes) > 1:
-        raise NotImplementedError("parallel.* > 1 " + todo.format(
-            "7e, data parallelism"))
-    if not cfg.data.device_cache:
-        raise NotImplementedError(
-            "data.device_cache=false (host batches, which only data "
-            "parallelism needs) " + todo.format("7e, data parallelism"))
+    mesh.check_axes(cfg.parallel)
     if cfg.data.dataset == "celeba":
         raise NotImplementedError("data.dataset=celeba " + todo.format(
             "14a, the CelebA64 LMDB reader"))
@@ -261,12 +262,15 @@ def draw_t_noise(generator: torch.Generator, x0: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Global step ``step``'s timestep indices ``(B,)`` in ``t_range``
     (``VPDiffusion.t_range``) and noise (``x0``'s shape) from the stage's
-    generator.  ``step`` is not used here; it lets a test put in its place
-    a function that replays another stream."""
-    t = torch.randint(*t_range, (x0.shape[0],), generator=generator,
-                      device=x0.device)
-    noise = torch.randn(x0.shape, generator=generator, device=x0.device,
-                        dtype=x0.dtype)
+    generator (in a data-parallel step, this rank's rows of the global
+    draws).  ``step`` is not used here; it lets a test put in its place a
+    function that replays another stream."""
+    t = mesh.draw_rows(lambda shape: torch.randint(
+        *t_range, shape, generator=generator, device=x0.device),
+        (x0.shape[0],))
+    noise = mesh.draw_rows(lambda shape: torch.randn(
+        shape, generator=generator, device=x0.device, dtype=x0.dtype),
+        x0.shape)
     return t, noise
 
 
@@ -365,12 +369,22 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
 
     ``params``, a ``state_dict`` (for instance from
     ``models.convert.flax_to_state_dict``), replaces the fresh init.
+    With ``parallel.data`` > 1 this starts (or joins) the ranks and returns
+    rank 0's state.
     """
     _check_ported(cfg)        # before a train_id's run is looked up
     cfg = config_lib.restore_run_config(cfg)
     check_config(cfg)
     _check_ported(cfg)        # what a restored run's config asks for
+    if mesh.needs_launch(cfg.parallel):
+        return trainer.launch(train, cfg, params, lambda: build_model(
+            cfg, load_dataset(cfg.data).shape[-1]))
     device = resolve_device(cfg.device)
+    group = mesh.task_group(cfg.parallel, device)
+    mesh.check_batch_divisible(group, cfg.data.batch_size,
+                               "data.batch_size")
+    device = group.device if group else device
+    main_rank = mesh.is_main(group)
     tc = cfg.train
     data = load_dataset(cfg.data)
     in_ch = data.shape[-1]
@@ -384,12 +398,19 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
     model.to(device)
     named = dict(model.named_parameters())
 
-    metrics = MetricsLogger(tc.logdir)
-    config_lib.save_yaml(cfg, os.path.join(tc.logdir, "config.yaml"))
+    metrics = MetricsLogger(tc.logdir, main_rank)
+    if main_rank:
+        config_lib.save_yaml(cfg, os.path.join(tc.logdir, "config.yaml"))
     stages = trainer.StageSpec.from_schedule(tc.num_iterations_list,
                                              n_levels)
     sequ = len(stages) > 1
-    data_dev = torch.from_numpy(data).to(device)
+    data_dev = (torch.from_numpy(data).to(device) if cfg.data.device_cache
+                else None)
+
+    def batch_fn(idx, step):
+        if data_dev is None:
+            return loader_lib.to_device([data[idx]], device)[0]
+        return data_dev[torch.as_tensor(idx, device=device)]
 
     def labels_fn(spec):
         return (freezing.openai_wavelet_labels(named, n_levels,
@@ -416,6 +437,8 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
                        cfg.diffusion.last_loss_schedule_weight)
 
     def on_step(stage, x0, step):
+        if not main_rank:
+            return
         n, cur_res = stage.spec.n_levels_used, stage.res
         if tc.samples_every_iters and step % tc.samples_every_iters == 0:
             # one grid per active resolution (main.py:480-554)
@@ -436,13 +459,11 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
         model, stages, tc, highest_res=cfg.data.resolution,
         n_items=len(data), batch_size=cfg.data.batch_size,
         save_every=tc.save_every_iters, device=device, metrics=metrics,
-        labels_fn=labels_fn,
-        batch_fn=lambda idx, step: data_dev[torch.as_tensor(idx,
-                                                            device=device)],
-        loss_fn=loss_fn, lr_at=lambda k: tc.lr, stop_files=STOP_FILES,
-        on_step=on_step)
+        labels_fn=labels_fn, batch_fn=batch_fn, loss_fn=loss_fn,
+        lr_at=lambda k: tc.lr, stop_files=STOP_FILES, on_step=on_step,
+        group=group)
 
-    if tc.do_superres and is_wavelet and sequ and not stopped:
+    if tc.do_superres and is_wavelet and sequ and not stopped and main_rank:
         runs, needed, have = _superres_levels(cfg)
         if runs:
             final = stages[-1]

@@ -1,4 +1,5 @@
-"""PDE surrogate training (Navier-Stokes 2D / shallow water 2D) on one GPU.
+"""PDE surrogate training (Navier-Stokes 2D / shallow water 2D) on one GPU
+or data-parallel on several.
 
 Port of ``unet_design_tpu/tasks/pde.py`` (``train``, ``validate``,
 ``validate_device``): epoch-staged sequential training
@@ -24,6 +25,16 @@ training mode and validates on its running statistics, which the
 checkpoints carry as buffers of its ``state_dict`` (the JAX trainer's
 ``model_state``, ``pde.py:276, 367-413, 437-442, 577-588``).
 
+With ``parallel.data=N`` (``parallel/mesh.py``; JAX ``pde.py:249-262,
+524-564``) every rank stages or streams the same splits and takes its rows
+of each global batch; the gradients are averaged over the ranks (BatchNorm
+takes the global batch's statistics), the logged loss is the mean over
+them, every rank validates the whole valid split (so every rank agrees on
+the best checkpoint) and rank 0 writes.  Across hosts
+(``parallel.num_processes``) each host opens its stride of the files and
+draws batches of ``batch_size / num_processes`` from them, which its ranks
+split, and the validation metrics are averaged over the hosts.
+
 Run: ``python -m unet_design_tpu_torch.tasks.pde --config <yaml> [k=v ...]``.
 """
 
@@ -43,6 +54,7 @@ from unet_design_tpu_torch.data import pde as pde_data
 from unet_design_tpu_torch.evalx import metrics as eval_metrics
 from unet_design_tpu_torch.models import registry
 from unet_design_tpu_torch.ops import blocks, haar, wavelet
+from unet_design_tpu_torch.parallel import mesh
 from unet_design_tpu_torch.parallel.mesh import ParallelConfig
 from unet_design_tpu_torch.process import losses as losses_lib
 from unet_design_tpu_torch.process import rollout as rollout_lib
@@ -149,15 +161,6 @@ class Config:
     device: str = "cuda"
 
 
-def _check_ported(cfg: Config) -> None:
-    """Reject what this slice of the port does not implement yet."""
-    todo = "is not ported yet (ROADMAP.md, queue A: {})"
-    p = cfg.parallel
-    if max(p.data, p.model, p.spatial, p.num_processes) > 1:
-        raise NotImplementedError("parallel.* > 1 " + todo.format(
-            "data parallelism"))
-
-
 def pde_config(cfg: DataConfig) -> pde_data.PDEDataConfig:
     return pde_data.PDEDataConfig(cfg.n_scalar_components,
                                   cfg.n_vector_components, cfg.trajlen, 2)
@@ -182,16 +185,19 @@ def build_model(cfg: Config) -> nn.Module:
         **overrides)
 
 
-def open_trajectories(cfg: DataConfig, mode: str):
+def open_trajectories(cfg: DataConfig, mode: str, host: int = 0,
+                      n_hosts: int = 1):
+    """The split's opener; a file split takes host ``host``'s stride of
+    the files (``loader.shard_for_process``)."""
     if cfg.task == "navierstokes2d":
         files = pde_data.NavierStokesOpener.list_files(cfg.data_path, mode)
         return pde_data.NavierStokesOpener(
-            loader_lib.shard_for_process(files), mode,
+            loader_lib.shard_for_process(files, host, n_hosts), mode,
             cfg.limit_trajectories)
     if cfg.task == "shallowwater2d":
         files = pde_data.ShallowWaterOpener.list_files(cfg.data_path, mode)
         return pde_data.ShallowWaterOpener(
-            loader_lib.shard_for_process(files), mode,
+            loader_lib.shard_for_process(files, host, n_hosts), mode,
             cfg.limit_trajectories, skip_nt=cfg.skip_nt,
             sample_rate=cfg.sample_rate)
     if cfg.task == "synthetic":
@@ -208,11 +214,12 @@ def count_trajectories(opener) -> int:
     return len(opener)
 
 
-def open_splits(cfg: DataConfig):
-    """The train and valid openers; with ``cache_in_memory``, read once and
-    kept in RAM (and in the stacked disk cache with ``stacked_cache``)."""
-    train_opener = open_trajectories(cfg, "train")
-    valid_opener = open_trajectories(cfg, "valid")
+def open_splits(cfg: DataConfig, host: int = 0, n_hosts: int = 1):
+    """The train and valid openers (of host ``host``'s files); with
+    ``cache_in_memory``, read once and kept in RAM (and in the stacked disk
+    cache with ``stacked_cache``)."""
+    train_opener = open_trajectories(cfg, "train", host, n_hosts)
+    valid_opener = open_trajectories(cfg, "valid", host, n_hosts)
     if cfg.cache_in_memory:
         cdir = stack_cache_dir(cfg)
         ns = cfg.n_scalar_components
@@ -290,9 +297,24 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
 
     ``params``, a ``state_dict`` (for instance from
     ``models.convert.flax_to_state_dict``), replaces the fresh init.
+    With ``parallel.data`` > 1 this starts (or joins) the ranks and returns
+    rank 0's state.
     """
-    _check_ported(cfg)
+    if mesh.needs_launch(cfg.parallel):
+        return trainer.launch(train, cfg, params, lambda: build_model(cfg))
     device = resolve_device(cfg.device)
+    group = mesh.task_group(cfg.parallel, device)
+    mesh.check_batch_divisible(group, cfg.data.batch_size,
+                               "data.batch_size")
+    device = group.device if group else device
+    # across hosts a file split is each host's own: it draws its share of
+    # every batch, and its ranks split that
+    host_split = (group is not None and cfg.parallel.num_processes > 1
+                  and cfg.data.task != "synthetic")
+    bs = cfg.data.batch_size // (cfg.parallel.num_processes if host_split
+                                 else 1)
+    rows = slice(None) if group is None else (
+        group.host_rows(bs) if host_split else group.rows(bs))
     pde = pde_config(cfg.data)
     model = build_model(cfg)
     g_model = is_g_model(cfg.model.name)
@@ -309,17 +331,23 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
         model.load_state_dict(params, strict=True)
     model.to(device)
 
-    metrics_logger = MetricsLogger(cfg.train.logdir)
-    ckpt = CheckpointManager(os.path.join(cfg.train.logdir, "ckpt"))
+    metrics_logger = MetricsLogger(cfg.train.logdir, mesh.is_main(group))
+    ckpt = CheckpointManager(os.path.join(cfg.train.logdir, "ckpt"),
+                             group=group)
     ckpt_latest = CheckpointManager(
-        os.path.join(cfg.train.logdir, "ckpt_latest"), keep=2)
+        os.path.join(cfg.train.logdir, "ckpt_latest"), keep=2, group=group)
     best_val = np.inf
     prev_stage = -1
     step = 0
     cycles = (cfg.data.train_cycles if cfg.data.train_cycles is not None
               else pde.trajlen)
 
-    train_opener, valid_opener = open_splits(cfg.data)
+    train_opener, valid_opener = open_splits(
+        cfg.data, *((cfg.parallel.process_id, cfg.parallel.num_processes)
+                    if host_split else ()))
+    if host_split and not group.all_equal(count_trajectories(train_opener)):
+        raise ValueError("every host must hold as many training "
+                         "trajectories as the others (equal steps)")
     fields_dev, valid_fields_dev = stage_splits(cfg.data, train_opener,
                                                 valid_opener, device)
     if fields_dev is None and cfg.train.shuffle_trajectory_order:
@@ -338,7 +366,7 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
             cfg.train.scheduler_max_epochs or n_epochs_total,
             warmup_start_lr=cfg.train.warmup_start_lr,
             eta_min=cfg.train.eta_min,
-            steps_per_epoch=max(1, -(-n_windows // cfg.data.batch_size)))
+            steps_per_epoch=max(1, -(-n_windows // bs)))
 
     # Full-fidelity resume: params, optimizer moments, schedule position and
     # best-val marker continue; the window stream is epoch-seeded, so the
@@ -417,20 +445,22 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
             nonlocal opt_count
             if schedule is not None:
                 opt.param_groups[0]["lr"] = schedule(opt_count)
-            loss = loss_fn(x, y)
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
+            with mesh.sharded_batch(group):
+                loss = loss_fn(x, y)
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
             for p in train_params:
                 # a parameter this stage's forward does not reach still
                 # takes an update (zero moments, AdamW decay), as under optax
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            if group is not None:
+                group.all_reduce_grads_([p.grad for p in train_params])
             opt.step()
             opt_count += 1
             return loss.detach()
 
-        # ---- train epoch: the JAX trainer's window stream
-        bs = cfg.data.batch_size
+        # ---- train epoch: the JAX trainer's window stream, this rank's rows
         model.train()
         t0 = time.monotonic()
         losses = []
@@ -443,9 +473,11 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
             starts = ep_rng.integers(0, mst + 1, size=idx_stream.size)
             n_steps = idx_stream.size // bs
             idxs = torch.as_tensor(
-                idx_stream[:n_steps * bs].reshape(n_steps, bs), device=device)
-            sts = torch.as_tensor(starts[:n_steps * bs].reshape(n_steps, bs),
-                                  device=device)
+                idx_stream[:n_steps * bs].reshape(n_steps, bs)[:, rows],
+                device=device)
+            sts = torch.as_tensor(
+                starts[:n_steps * bs].reshape(n_steps, bs)[:, rows],
+                device=device)
             for s in range(n_steps):
                 losses.append(train_step(*_gather_windows(
                     fields_dev, idxs[s], sts[s], th, tf, tg)))
@@ -454,10 +486,14 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
                 train_opener, pde, th, tf, tg, seed=cfg.train.seed + epoch,
                 cycles=cycles)
             for batch in pde_data.batched_windows(windows, bs):
-                losses.append(train_step(*loader_lib.to_device(batch,
-                                                               device)))
+                losses.append(train_step(*loader_lib.to_device(
+                    [a[rows] for a in batch], device)))
         n_steps = len(losses)
-        epoch_losses = (torch.stack(losses).cpu().numpy() if losses
+        if losses:
+            losses = torch.stack(losses)
+            if group is not None:   # the global batch's losses
+                losses = group.mean(losses)
+        epoch_losses = (losses.cpu().numpy() if len(losses)
                         else np.zeros(0))  # one fetch per epoch (syncs)
         dt = time.monotonic() - t0
         metrics_logger.log({"train/epoch_seconds": dt,
@@ -479,6 +515,8 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
             else:
                 val = validate(cfg, model, pde, n_levels_used, nd,
                                valid_opener, device)
+            if host_split:   # each host validated its own files
+                val = group.mean_scalars(val)
             metrics_logger.log(val, step)
             if val.get("valid/unrolled_loss_mean", np.inf) < best_val:
                 best_val = val["valid/unrolled_loss_mean"]
@@ -487,6 +525,8 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
 
         # ---- epoch-granular full-state checkpoint (resume point)
         stopped = trainer.stop_file_present(STOP_FILES, cfg.train.logdir)
+        if group is not None and group.any(stopped) and not stopped:
+            stopped = "on another rank"
         stopping = stopped or (cfg.train.stop_after_epochs and epoch + 1 >=
                                start_epoch + cfg.train.stop_after_epochs)
         if ((epoch + 1) % max(cfg.train.save_latest_every, 1) == 0

@@ -1,4 +1,5 @@
-"""WMH (White-Matter-Hyperintensity) MRI segmentation on one GPU.
+"""WMH (White-Matter-Hyperintensity) MRI segmentation on one GPU or
+data-parallel on several.
 
 Port of ``unet_design_tpu/tasks/wmh.py:37-346``, itself a re-design of
 ``wmh/train_pt.py:366-668``: per-modality z-norm with train statistics,
@@ -28,6 +29,13 @@ zero-pads as the JAX package does).  The choice is made by shape, once per
 stage, logged and counted in :data:`downsample_routes`; a failing build or
 launch is never caught.
 
+With ``parallel.data=N`` (``parallel/mesh.py``; JAX ``wmh.py:110-134,
+251-254``) every rank draws and augments the same global batch and takes
+its rows; the Dice sums run over the global batch and the gradients are
+averaged over the ranks.  A tail batch that does not split evenly is
+computed whole on every rank, as JAX replicates it.  Every rank validates
+and tests on the whole splits, so the early stop agrees; rank 0 writes.
+
 Run: ``python -m unet_design_tpu_torch.tasks.wmh --config configs/wmh.yaml
 [k=v ...]`` (``device=cpu`` for the CPU).
 """
@@ -49,6 +57,7 @@ from unet_design_tpu_torch.data import wmh as wmh_data
 from unet_design_tpu_torch.evalx import wmh_metrics
 from unet_design_tpu_torch.models.unetbase import WMHSegUnet
 from unet_design_tpu_torch.ops import blocks, haar, wavelet
+from unet_design_tpu_torch.parallel import mesh
 from unet_design_tpu_torch.parallel.mesh import ParallelConfig
 from unet_design_tpu_torch.process import losses as losses_lib
 from unet_design_tpu_torch.tasks.pde import find_cur_stage, resolve_device
@@ -119,14 +128,6 @@ class Config:
         default_factory=ParallelConfig)
     # torch device; "cuda" fails without a GPU (nothing falls back)
     device: str = "cuda"
-
-
-def _check_ported(cfg: Config) -> None:
-    """Reject what this slice of the port does not implement yet."""
-    todo = "is not ported yet (ROADMAP.md, queue A, item {})"
-    p = cfg.parallel
-    if max(p.data, p.model, p.spatial, p.num_processes) > 1:
-        raise NotImplementedError("parallel.* > 1 " + todo.format("7e"))
 
 
 def load_data(cfg: DataConfig):
@@ -234,17 +235,24 @@ def make_loss_fn(cfg: Config, model: nn.Module, n: int, down: Downsample):
 
 
 def train_step(opt: torch.optim.Optimizer, train_params: List[nn.Parameter],
-               loss_fn, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+               loss_fn, x: torch.Tensor, y: torch.Tensor,
+               group: Optional[mesh.Group] = None,
+               sharded: bool = False) -> torch.Tensor:
     """One Adam step on the stage's trainable parameters; returns the loss
-    (not read back)."""
-    loss = loss_fn(x, y)
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
+    (not read back).  With ``group`` the gradients are averaged over its
+    ranks; ``sharded``: ``x`` and ``y`` are this rank's rows of the batch
+    (else every rank computes the whole batch)."""
+    with mesh.sharded_batch(group if sharded else None):
+        loss = loss_fn(x, y)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
     for p in train_params:
         # a trainable parameter this stage's forward does not reach takes
         # a zero update, as under optax
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    if group is not None:
+        group.all_reduce_grads_([p.grad for p in train_params])
     opt.step()
     return loss
 
@@ -260,9 +268,17 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
 
     ``params``, a ``state_dict`` (for instance from
     ``models.convert.flax_to_state_dict``), replaces the fresh init.
+    With ``parallel.data`` > 1 this starts (or joins) the ranks and returns
+    rank 0's result.
     """
-    _check_ported(cfg)
+    if mesh.needs_launch(cfg.parallel):
+        return mesh.launch(train, cfg, params, parallel=cfg.parallel,
+                           device=cfg.device)
     device = resolve_device(cfg.device)
+    group = mesh.task_group(cfg.parallel, device)
+    mesh.check_batch_divisible(group, cfg.data.batch_size,
+                               "data.batch_size")
+    device = group.device if group else device
     (tr_x, tr_y), (va_x, va_y), (te_x, te_y) = load_data(cfg.data)
 
     model = build_model(cfg)
@@ -274,10 +290,11 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
         model.load_state_dict(params, strict=True)
     model.to(device)
 
-    metrics_logger = MetricsLogger(cfg.train.logdir)
-    ckpt = CheckpointManager(os.path.join(cfg.train.logdir, "ckpt"))
+    metrics_logger = MetricsLogger(cfg.train.logdir, mesh.is_main(group))
+    ckpt = CheckpointManager(os.path.join(cfg.train.logdir, "ckpt"),
+                             group=group)
     ckpt_latest = CheckpointManager(
-        os.path.join(cfg.train.logdir, "ckpt_latest"), keep=2)
+        os.path.join(cfg.train.logdir, "ckpt_latest"), keep=2, group=group)
     best_val = np.inf
     best_params = _clone(model.state_dict())
     patience = 0
@@ -357,9 +374,13 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
                 bx, by = wmh_data.augment_batch(bx, by,
                                                 cfg.data.augmentation,
                                                 aug_rng)
+            sharded = group is not None and len(bx) % group.world == 0
+            if sharded:
+                bx, by = (a[group.rows(len(a))] for a in (bx, by))
             x = torch.from_numpy(np.ascontiguousarray(bx)).to(device)
             y = torch.from_numpy(np.ascontiguousarray(by)).to(device)
-            loss = train_step(opt, train_params, loss_fn, x, y)
+            loss = train_step(opt, train_params, loss_fn, x, y, group,
+                              sharded)
             n_steps += 1
             step += 1
         last_loss = float(loss.detach()) if loss is not None else float("nan")

@@ -4,6 +4,8 @@ Port of ``unet_design_tpu/train/checkpoint.py`` (orbax there): one file
 ``step_<n>.pt`` per saved step holding a nested dict of tensors and plain
 values (model and optimizer ``state_dict``s, counters), beside an optional
 JSON ``extra_<n>.json``; only the newest ``keep`` steps stay on disk.
+In a data-parallel run (``group``) rank 0 writes and every rank waits at a
+barrier after a save, so that every rank can then restore what was saved.
 """
 
 from __future__ import annotations
@@ -14,13 +16,16 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from unet_design_tpu_torch.parallel import mesh
 from unet_design_tpu_torch.utils.config import resolve_run_dir
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 5):
+    def __init__(self, directory: str, keep: int = 5,
+                 group: Optional[mesh.Group] = None):
         self.directory = os.path.abspath(directory)
         self.keep = keep
+        self.group = group
         os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
@@ -39,6 +44,12 @@ class CheckpointManager:
 
     def save(self, step: int, state: Dict[str, Any],
              extra: Optional[Dict[str, Any]] = None) -> None:
+        if mesh.is_main(self.group):
+            self._write(step, state, extra)
+        mesh.barrier(self.group)
+
+    def _write(self, step: int, state: Dict[str, Any],
+               extra: Optional[Dict[str, Any]]) -> None:
         if extra is not None:
             with open(self._extra_path(step), "w") as f:
                 json.dump(extra, f)

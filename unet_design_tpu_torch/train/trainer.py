@@ -22,6 +22,7 @@ import torch.nn as nn
 
 from unet_design_tpu_torch.data import loader as loader_lib
 from unet_design_tpu_torch.ops import wavelet
+from unet_design_tpu_torch.parallel import mesh
 from unet_design_tpu_torch.train import freezing
 from unet_design_tpu_torch.train.checkpoint import (CheckpointManager,
                                                     resume_source)
@@ -120,6 +121,44 @@ class TrainState:
     ema: Optional[Dict[str, torch.Tensor]] = None
 
 
+def pack_state(state: TrainState) -> Dict[str, Any]:
+    """``state`` as tensors, names and the optimizer's class (what a
+    spawned rank hands back, ``mesh.launch``): a model need not pickle."""
+    opt = state.optimizer
+    packed = {"model": state.model.state_dict(), "step": state.step,
+              "ema": state.ema, "optimizer": None}
+    if opt is not None:
+        names = {id(p): n for n, p in state.model.named_parameters()}
+        packed["optimizer"] = {
+            "cls": type(opt),
+            "params": [names[id(p)] for p in opt.param_groups[0]["params"]],
+            "state": opt.state_dict()}   # holds the hyperparameters too
+    return packed
+
+
+def unpack_state(packed: Mapping[str, Any], model: nn.Module) -> TrainState:
+    """:func:`pack_state`'s ``TrainState`` around ``model`` (built as the
+    packed one was), on the device of the packed tensors."""
+    model.to(next(iter(packed["model"].values())).device)
+    model.load_state_dict(packed["model"])
+    opt = None
+    if packed["optimizer"] is not None:
+        o = packed["optimizer"]
+        named = dict(model.named_parameters())
+        opt = o["cls"]([named[n] for n in o["params"]])
+        opt.load_state_dict(o["state"])
+    return TrainState(model, opt, packed["step"], packed["ema"])
+
+
+def launch(train: Callable, cfg: Any, params: Any,
+           build_model: Callable[[], nn.Module]) -> TrainState:
+    """``train(cfg, params)`` on the ranks of ``cfg.parallel``
+    (``mesh.launch``); returns rank 0's state around ``build_model()``."""
+    return mesh.launch(train, cfg, params, parallel=cfg.parallel,
+                       device=cfg.device, pack=pack_state,
+                       unpack=lambda s: unpack_state(s, build_model()))
+
+
 def seeded_generator(device, *key: int) -> torch.Generator:
     """A generator on ``device`` seeded from the integers ``key`` (the JAX
     trainers' ``fold_in`` chains: a stage's draws come from ``(seed,
@@ -175,7 +214,8 @@ def run_stages(model: nn.Module, stages: Sequence[StageSpec], tc: Any, *,
                on_step: Optional[Callable[[Stage, torch.Tensor, int],
                                           None]] = None,
                extra_state: Optional[Mapping[str, Mapping[
-                   str, torch.Tensor]]] = None
+                   str, torch.Tensor]]] = None,
+               group: Optional[mesh.Group] = None
                ) -> Tuple[int, Optional[torch.optim.Optimizer], bool]:
     """The staged step loop of the diffusion trainers (the JAX
     ``tasks/diff_cifar.py`` and ``tasks/diff_mnist.py`` ``train``).
@@ -203,13 +243,20 @@ def run_stages(model: nn.Module, stages: Sequence[StageSpec], tc: Any, *,
     :func:`~unet_design_tpu_torch.train.checkpoint.resume_source`) skips the
     finished stages and continues the data stream, draws and moments bit
     for bit.  Returns ``(global step, last optimizer, stopped)``.
+
+    With a data-parallel ``group`` each rank takes its rows of the index
+    stream (``batch_fn`` gets those indices), steps inside
+    ``mesh.sharded_batch`` (global draws and batch sums), averages every
+    gradient over the ranks before the norm and the clip, logs the mean
+    loss over the ranks, and stops when a stop file is on any rank; rank 0
+    writes the checkpoints.
     """
     named = dict(model.named_parameters())
     for p in named.values():
         # frozen parameters get gradients too: train/grad_norm counts them
         p.requires_grad_(True)
     extra_state = extra_state or {}
-    ckpt = CheckpointManager(os.path.join(tc.logdir, "ckpt"))
+    ckpt = CheckpointManager(os.path.join(tc.logdir, "ckpt"), group=group)
     src_ckpt, resume_step = resume_source(ckpt, tc.train_id,
                                           tc.restore_iter, tc.resume)
     raw = None
@@ -258,15 +305,20 @@ def run_stages(model: nn.Module, stages: Sequence[StageSpec], tc: Any, *,
         t0 = time.monotonic()
         while step < stage_end:
             (idx,) = next(batches)
+            if group is not None:
+                idx = idx[group.rows(len(idx))]
             x0 = batch_fn(idx, step)
             if sequ and spec.n_downsample:
                 x0 = wavelet.haar_downsample(x0, spec.n_downsample)
-            loss, loss_list = loss_fn(stage, x0, step)
-            model.zero_grad(set_to_none=True)
-            loss.backward()
+            with mesh.sharded_batch(group):
+                loss, loss_list = loss_fn(stage, x0, step)
+                model.zero_grad(set_to_none=True)
+                loss.backward()
             for p in named.values():
                 if p.grad is None:   # not reached at this stage: optax's 0
                     p.grad = torch.zeros_like(p)
+            if group is not None:
+                group.all_reduce_grads_([p.grad for p in named.values()])
             grad_norm = global_norm([p.grad for p in named.values()])
             if tc.grad_clip is not None:
                 clip_by_global_norm_([p.grad for p in train_params],
@@ -276,6 +328,9 @@ def run_stages(model: nn.Module, stages: Sequence[StageSpec], tc: Any, *,
             if on_update:
                 on_update(stage)
             if step % tc.metrics_every_iters == 0:
+                if group is not None:
+                    loss, *loss_list = group.mean(torch.stack(
+                        [t.detach().float() for t in (loss, *loss_list)]))
                 metrics.log(loss_metrics(loss, loss_list, grad_norm,
                                          stage.res), step)
             if on_step:
@@ -287,6 +342,8 @@ def run_stages(model: nn.Module, stages: Sequence[StageSpec], tc: Any, *,
             if saved_now:
                 save()
             stopped = stop_file_present(stop_files, tc.logdir)
+            if group is not None and group.any(stopped) and not stopped:
+                stopped = "on another rank"
             if stopped or (tc.stop_after_steps
                            and step >= tc.stop_after_steps):
                 if not saved_now:

@@ -6,6 +6,8 @@ Port of ``unet_design_tpu/utils/logging.py`` (``get_logger``,
 ``<logdir>/metrics.jsonl``, the file the JAX trainer writes; each
 ``log_figure`` (a matplotlib figure) or ``log_image`` (an RGB array,
 written without matplotlib) call saves a PNG under ``<logdir>/figures``.
+In a data-parallel run only the main rank (``is_main``) writes; the others'
+calls do nothing, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,10 +33,10 @@ def get_logger(name: str = "unet_design_tpu_torch") -> logging.Logger:
 
 
 class MetricsLogger:
-    def __init__(self, logdir: Optional[str] = None):
-        self.logdir = logdir
+    def __init__(self, logdir: Optional[str] = None, is_main: bool = True):
+        self.logdir = logdir if is_main else None
         self._file = None
-        if logdir:
+        if self.logdir:
             os.makedirs(logdir, exist_ok=True)
             self._file = open(os.path.join(logdir, "metrics.jsonl"), "a")
 
