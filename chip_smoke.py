@@ -9,13 +9,15 @@ prints no result line); each prints its seconds:
    print the card's name and power limit;
 2. hold the Haar-pyramid kernel against its plain PyTorch version on the
    card, bit for bit, at the PDE path's shapes, the DDPM path's CIFAR
-   shapes, the VP path's one-channel MNIST shapes, in bf16, off a 16-byte
+   shapes, the VP path's one-channel MNIST shapes and three-channel
+   CelebA64 shapes (phase 14, fp32 and bf16), in bf16, off a 16-byte
    boundary and where the plan splits the width, and the multi-res targets
    of the three paths through it, and the WMH stage downsample's shapes
    (image (32, 200, 200, 2) and mask (32, 200, 200, 1) at L4, L3, L2),
    and the streamed shallow-water ``Unetbase-64_G``'s (16, 96, 192, 3) L4
    (phase 11); time it at (8, 128, 128, 3) L4, (16, 96, 192, 3) L4, the
-   three CIFAR shapes, the three MNIST shapes, the six WMH shapes and
+   three CIFAR shapes, the three MNIST shapes, the three CelebA shapes,
+   the six WMH shapes and
    (8, 64, 64, 3) L3 (phase 12's stage 0) beside its bound, the
    plain version, the ``F.avg_pool2d`` chain (kernel and chain in turns)
    and an empty kernel on the same grid (the launch floor);
@@ -162,11 +164,28 @@ prints no result line); each prints its seconds:
    group helpers over NCCL, one rank a card (two where two cards are
    visible), against what they must give.  Each arm's steps/s is printed,
    marked as two ranks sharing one card (not a scaling figure).
+14. the last entry points: (a) ``configs/diff_mnist_triangular.yaml``'s
+   ``WaveletUNetOpenAI`` (ch 32 x [2, 2, 2, 2], 64x64, batch 128, DWT
+   encoder, multi-res loss, freezing, N = 30) through ``tasks.diff_mnist.
+   main`` with ``data.dataset=celeba`` on 512 synthetic 64x64x3 images in
+   two ``celeba64_train_*.npy`` shards, four stages of 4 steps, stopped
+   and resumed at the stage-2 boundary: finite losses, one kernel launch a
+   step in stages 1-3 and none in stage 0, frozen parameters unchanged,
+   16 samples at 64 px, the trained model's forward on the card against
+   the CPU; (b) ``tasks.fid_proof`` staged (``--stages 2,2,2,2``, its own
+   ch-128 bf16 ``MultiResUNet``, 512 images, 256 DPM-Solver-20 samples a
+   score): four finite ``staged_curve`` points at 4, 8, 16 and 32 px
+   flagged untrusted, the four stats files, no kernel launch; then the
+   step-8 point removed and the run relaunched with ``--resume``, which
+   restores the step-8 checkpoint and scores it again (within 1 %)
+   without a training step; (c) ``examples.main_mnist`` for 20 steps,
+   its ``samples.png`` a 128x128 RGB grid.
 
 Kernel launches are counted on each training path alone (the count is set
 to 0 just before it and read just after) and printed per path; the
 kernels' JSON record carries their sum, phase 11's streamed path,
-phase 12's bf16 / remat paths and phase 13's ranks among them.  The line
+phase 12's bf16 / remat paths, phase 13's ranks and phase 14's CelebA
+run among them.  The line
 before the last is ``nvidia-smi``'s name and power limit; the one before that, the kernels'
 JSON record; the last line, ``{"ok": true, "device": {...}}``.  Imports
 nothing of JAX.
@@ -284,6 +303,12 @@ def phase_kernel(device) -> dict:
              ((128, 64, 64, 1), 4, torch.float32, 0),
              ((128, 32, 32, 1), 3, torch.float32, 0),
              ((128, 16, 16, 1), 2, torch.float32, 0),
+             ((128, 64, 64, 3), 4, torch.float32, 0),
+             ((128, 32, 32, 3), 3, torch.float32, 0),
+             ((128, 16, 16, 3), 2, torch.float32, 0),
+             ((128, 64, 64, 3), 4, torch.bfloat16, 0),
+             ((128, 32, 32, 3), 3, torch.bfloat16, 0),
+             ((128, 16, 16, 3), 2, torch.bfloat16, 0),
              ((32, 200, 200, 2), 4, torch.float32, 0),
              ((32, 200, 200, 2), 3, torch.float32, 0),
              ((32, 200, 200, 2), 2, torch.float32, 0),
@@ -329,11 +354,13 @@ def phase_kernel(device) -> dict:
         raise AssertionError(f"multires_targets_traj disagrees: {errs}")
     max_err = max(max_err, max(errs))
 
-    # the DDPM and VP losses' call: noise targets at the staged CIFAR and
-    # MNIST-Triangular shapes
+    # the DDPM and VP losses' call: noise targets at the staged CIFAR,
+    # MNIST-Triangular and CelebA64 shapes
     for shape, nd in (((128, 8, 8, 3), 2), ((128, 16, 16, 3), 1),
                       ((128, 32, 32, 3), 0), ((128, 16, 16, 1), 2),
-                      ((128, 32, 32, 1), 1), ((128, 64, 64, 1), 0)):
+                      ((128, 32, 32, 1), 1), ((128, 64, 64, 1), 0),
+                      ((128, 16, 16, 3), 2), ((128, 32, 32, 3), 1),
+                      ((128, 64, 64, 3), 0)):
         noise = rand(shape)
         out = wavelet.multires_targets(noise, 4, nd,
                                        pyramid_fn=haar.haar_pyramid)
@@ -367,14 +394,16 @@ def phase_kernel(device) -> dict:
             raise AssertionError(f"WMH stage downsample {shape}: {err}")
 
     # timing: the PDE path's largest call, then the DDPM path's three, the
-    # VP path's three, the WMH image's and mask's three, the streamed
-    # shallow-water Unetbase-64_G's (phase 11) and phase 12's 2-stage
-    # stage 0 (phase 3's stage 2)
+    # VP path's three on MNIST and three on CelebA64 (phase 14), the WMH
+    # image's and mask's three, the streamed shallow-water Unetbase-64_G's
+    # (phase 11) and phase 12's 2-stage stage 0 (phase 3's stage 2)
     main = time_pyramid(haar, rand((8, 128, 128, 3)), 4)
     for shape, n_levels in (((16, 96, 192, 3), 4), ((8, 64, 64, 3), 3),
                             ((128, 32, 32, 3), 4), ((128, 16, 16, 3), 3),
                             ((128, 8, 8, 3), 2), ((128, 64, 64, 1), 4),
                             ((128, 32, 32, 1), 3), ((128, 16, 16, 1), 2),
+                            ((128, 64, 64, 3), 4), ((128, 32, 32, 3), 3),
+                            ((128, 16, 16, 3), 2),
                             ((32, 200, 200, 2), 4), ((32, 200, 200, 2), 3),
                             ((32, 200, 200, 2), 2), ((32, 200, 200, 1), 4),
                             ((32, 200, 200, 1), 3), ((32, 200, 200, 1), 2)):
@@ -2222,6 +2251,304 @@ def phase_parallel() -> int:
     return launches
 
 
+CELEBA_STEPS = 4        # phase 14a: per stage, 4 stages
+CELEBA_IMAGES = 512
+CELEBA_SAMPLES = 16
+VP_YAML = os.path.join(HERE, "configs", "diff_mnist_triangular.yaml")
+
+
+def _celeba_args(root: str, logdir: str, resume: bool) -> list:
+    """``diff_mnist.main``'s command line for phase 14a: the yaml on the
+    CelebA shards under ``root``, ``CELEBA_STEPS`` steps a stage, a
+    checkpoint at every stage boundary; the first run stops at the stage-2
+    boundary and the second resumes it.  No figures (the card's machine
+    has no matplotlib); the yaml's ``do_superres`` is skipped with a
+    warning, four stages leaving no fifth level."""
+    n = CELEBA_STEPS
+    return ["--config", VP_YAML, "device=cuda", "data.dataset=celeba",
+            f"data.root={root}",
+            f"train.num_iterations_list=[{n},{n},{n},{n}]",
+            "train.samples_every_iters=0", "train.metrics_every_iters=1",
+            f"train.save_every_iters={n}",
+            f"train.stop_after_steps={0 if resume else 2 * n}",
+            f"train.resume={str(resume).lower()}", f"train.logdir={logdir}"]
+
+
+def _celeba_shards(root: str) -> None:
+    """``CELEBA_IMAGES`` CelebA-shaped 64x64x3 [0, 1] images (8x8 seeded
+    noise blown up 8x) as two ``celeba64_train_*.npy`` shards."""
+    os.makedirs(root)
+    rng = np.random.default_rng(0)
+    x = rng.random((CELEBA_IMAGES, 8, 8, 3), dtype=np.float32)
+    x = x.repeat(8, axis=1).repeat(8, axis=2)
+    half = CELEBA_IMAGES // 2
+    for i in range(2):
+        np.save(os.path.join(root, f"celeba64_train_{i:04d}.npy"),
+                x[i * half:(i + 1) * half])
+
+
+def _celeba_vp() -> int:
+    """Phase 14a; returns its Haar launches."""
+    from unet_design_tpu_torch.ops import haar
+    from unet_design_tpu_torch.tasks import diff_mnist
+    from unet_design_tpu_torch.train import freezing
+    from unet_design_tpu_torch.train.checkpoint import CheckpointManager
+    from unet_design_tpu_torch.utils import config as config_lib
+
+    base = os.path.join(HERE, "runs", "chip_smoke_celeba")
+    shutil.rmtree(base, ignore_errors=True)
+    root, logdir = os.path.join(base, "data"), os.path.join(base, "run")
+    _celeba_shards(root)
+    # the launch count where each step draws its noise (before its loss)
+    at_step = {}
+    draw = diff_mnist.draw_t_noise
+
+    def spy(generator, x0, t_range, step):
+        at_step[step] = haar.launches
+        return draw(generator, x0, t_range, step)
+    diff_mnist.draw_t_noise = spy
+    haar.launches = 0   # the CelebA VP path starts here
+    try:
+        for resume in (False, True):
+            diff_mnist.main(_celeba_args(root, logdir, resume))
+    finally:
+        diff_mnist.draw_t_noise = draw
+    launches = haar.launches  # the CelebA VP path ends here
+    n_steps = 4 * CELEBA_STEPS
+    at_step[n_steps] = launches
+    per_stage = [at_step[(s + 1) * CELEBA_STEPS] - at_step[s * CELEBA_STEPS]
+                 for s in range(4)]
+
+    records = _records(logdir)
+    losses = [r["train/loss"] for r in records if "train/loss" in r]
+    sps = [r["train/steps_per_sec"] for r in records
+           if "train/steps_per_sec" in r]
+    log(f"[celeba] per-step train/loss {[round(l, 4) for l in losses]}")
+    log(f"[celeba] per-stage steps/s {sps} (batch 128, fp32, 3 channels; "
+        f"stage 0 at 8x8 ... stage 3 at 64x64; each stage's first step "
+        f"included; stopped and resumed after stage 1) on {card_line()}")
+    log(f"[celeba] haar_pyramid launches per stage {per_stage}")
+    if len(losses) != n_steps or not np.isfinite(losses).all():
+        raise AssertionError(f"celeba losses: {losses}")
+    if per_stage != [0] + [CELEBA_STEPS] * 3:
+        raise AssertionError(f"celeba launches per stage {per_stage}")
+
+    ckpt = CheckpointManager(os.path.join(logdir, "ckpt"))
+    snaps = [ckpt.restore(CELEBA_STEPS * (s + 1))["model"] for s in range(4)]
+    for stage in range(1, 4):
+        labels = freezing.openai_wavelet_labels(list(snaps[0]), 4, stage + 1)
+        p0, p1 = snaps[stage - 1], snaps[stage]
+        frozen = [n for n, l in labels.items() if l == freezing.FROZEN]
+        moved = [n for n in frozen if not torch.equal(p0[n], p1[n])]
+        trained = [n for n, l in labels.items() if l == freezing.TRAIN
+                   and not torch.equal(p0[n], p1[n])]
+        log(f"[celeba] stage {stage}: {len(frozen)} frozen tensors "
+            f"unchanged, {len(trained)} trainable tensors updated")
+        if moved or not frozen or not trained:
+            raise AssertionError(f"celeba stage {stage}: frozen tensors "
+                                 f"moved {moved[:5]}, trained {len(trained)}")
+
+    cfg = config_lib.parse_cli(diff_mnist.Config,
+                               _celeba_args(root, logdir, True))
+    model = diff_mnist.build_model(cfg, 3)
+    model.load_state_dict(snaps[-1])
+    model.cuda()
+    vp = diff_mnist.build_vp(cfg, torch.device("cuda"))
+    gen = torch.Generator("cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = diff_mnist.sample(cfg, model, vp, gen, 4, 64, 3, CELEBA_SAMPLES)
+    torch.cuda.synchronize()
+    log(f"[celeba] reverse-SDE sampler, 30 steps, {CELEBA_SAMPLES} samples "
+        f"at 64x64x3 (n_levels_used 4), fp32: {time.perf_counter() - t0:.3f}"
+        f" s on {card_line()}")
+    if x.shape != (CELEBA_SAMPLES, 64, 64, 3) or not torch.isfinite(x).all():
+        raise AssertionError(f"celeba samples: {tuple(x.shape)}")
+
+    cpu = diff_mnist.build_model(cfg, 3)
+    cpu.load_state_dict(snaps[-1])
+    xin = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 64, 64, 3)).astype(np.float32))
+    t = torch.tensor([3.0, 17.5])
+    with torch.no_grad():
+        out = model(xin.cuda(), t.cuda())
+        ref = cpu(xin, t)
+    for a, b in zip(out, ref, strict=True):
+        err = float((a.cpu() - b).abs().max())
+        scale = float(b.abs().max())
+        log(f"[celeba] fp32 forward {tuple(a.shape)} card vs CPU: max abs "
+            f"err {err:.3g} (scale {scale:.3g}, tol 1e-4 relative)")
+        if not torch.isfinite(a).all() or err > 1e-4 * max(scale, 1e-6):
+            raise AssertionError(f"celeba forward disagrees: {err}")
+    shutil.rmtree(base, ignore_errors=True)
+    return launches
+
+
+class _Timed:
+    """Wraps ``mod.<name>`` for the duration of a ``with``: each call's
+    seconds (the device synchronised) in ``calls``."""
+
+    def __init__(self, mod, name: str):
+        self.mod, self.name, self.calls = mod, name, []
+        self.fn = getattr(mod, name)
+
+    def __enter__(self):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = self.fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.calls.append(time.perf_counter() - t0)
+            return out
+        setattr(self.mod, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.fn)
+        return False
+
+
+def _fid_proof_run(args: list) -> tuple:
+    """``fid_proof.main(args)`` with its stats passes, trainings and scores
+    timed; returns the artifact and the three lists of seconds."""
+    from unet_design_tpu_torch.tasks import diff_cifar, fid_proof
+    with _Timed(fid_proof, "save_stats") as stats, \
+            _Timed(diff_cifar, "train") as train, \
+            _Timed(diff_cifar, "evaluate") as score:
+        out = fid_proof.main(args)
+    return out, stats.calls, train.calls, score.calls
+
+
+def _finite(v) -> bool:
+    return v is not None and bool(np.isfinite(v))
+
+
+def _fid_proof() -> None:
+    """Phase 14b."""
+    from unet_design_tpu_torch.ops import haar
+
+    logdir = os.path.join(HERE, "runs", "chip_smoke_fid_proof")
+    shutil.rmtree(logdir, ignore_errors=True)
+    args = ["--stages", "2,2,2,2", "--dataset-size", "512", "--images",
+            "256", "--eval-batch", "256", "--sample-steps", "20",
+            "--logdir", logdir]
+    before = haar.launches
+    out, stats, trains, scores = _fid_proof_run(args)
+    log(f"[fid_proof] --stages 2,2,2,2 (ch 128, bf16, batch 128, 512 "
+        f"synthetic images; 256 DPM-Solver-20 samples a score): stats "
+        f"passes {[round(s, 2) for s in stats]} s (32, 4, 8, 16 px), "
+        f"stages {[round(s, 2) for s in trains]} s, scores "
+        f"{[round(s, 2) for s in scores]} s (untrained, then 4, 8, 16, 32 "
+        f"px) on {card_line()}")
+    curve = out["staged_curve"]
+    log(f"[fid_proof] staged_curve {json.dumps(curve)}; untrained FID "
+        f"{out['fid_untrained']}")
+    if [p["resolution"] for p in curve] != [4, 8, 16, 32] or not all(
+            _finite(p[k]) for p in curve for k in ("IS", "FID", "KID")):
+        raise AssertionError(f"fid_proof staged_curve: {curve}")
+    if "random-he-sqrt2-torch" not in out["note"] or len(trains) != 4 \
+            or len(scores) != 5:
+        raise AssertionError(f"fid_proof run: {out['note']}, "
+                             f"{len(trains)} trainings, {len(scores)} scores")
+    names = sorted(f for f in os.listdir(logdir) if f.startswith("dataset"))
+    if names != ["dataset_stats.npz", "dataset_stats_res16.npz",
+                 "dataset_stats_res4.npz", "dataset_stats_res8.npz"]:
+        raise AssertionError(f"fid_proof stats files: {names}")
+    if haar.launches != before:
+        raise AssertionError("fid_proof launched the Haar kernel")
+
+    # a relaunch whose checkpoint sits exactly at a milestone without a
+    # point (a run that ended after writing the step-8 checkpoint, before
+    # scoring it): the artifact as milestone 6 left it; restored and
+    # scored, no training step
+    path = os.path.join(logdir, "fid_proof.json")
+    art = json.load(open(path))
+    first = art["fid_curve"].pop("8")
+    art["kid_curve"].pop("8")
+    art["staged_curve"] = [p for p in art["staged_curve"] if p["step"] != 8]
+    six = art["staged_curve"][-1]
+    art.update(train_steps=6, fid_trained=six["FID"], kid_trained=six["KID"],
+               is_trained=six["IS"])
+    with open(path, "w") as f:
+        json.dump(art, f)
+    ckpt_dir = os.path.join(logdir, "ckpt")
+
+    def ckpt_files():
+        return {f: os.path.getmtime(os.path.join(ckpt_dir, f))
+                for f in os.listdir(ckpt_dir)}
+    kept = ckpt_files()
+    out, stats, trains, scores = _fid_proof_run(args + ["--resume"])
+    again = out["fid_curve"]["8"]
+    after = ckpt_files()
+    log(f"[fid_proof] --resume with the step-8 point removed: trainings "
+        f"{len(trains)}, scores {[round(s, 2) for s in scores]} s, stats "
+        f"passes {len(stats)}; FID at 8 {first} then {again} "
+        f"({abs(again - first) / first:.2e} relative, tol 1e-2); "
+        f"checkpoints {sorted(after)} unchanged: {after == kept}")
+    if trains or len(scores) != 1 or stats or after != kept or \
+            abs(again - first) > 1e-2 * abs(first) or \
+            [p["step"] for p in out["staged_curve"]] != [2, 4, 6, 8]:
+        raise AssertionError("fid_proof resume at a milestone")
+    shutil.rmtree(logdir, ignore_errors=True)
+
+
+def _png_size(path: str) -> tuple:
+    """``(width, height)`` of an 8-bit RGB PNG, its pixel rows checked
+    against its header (no PIL on the card's machine)."""
+    import struct
+    import zlib
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n" or data[12:16] != b"IHDR":
+        raise AssertionError(f"{path}: not a PNG")
+    w, h, depth, color = struct.unpack(">IIBB", data[16:26])
+    pos, idat = 8, b""
+    while pos < len(data):
+        n = struct.unpack(">I", data[pos:pos + 4])[0]
+        if data[pos + 4:pos + 8] == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    if (depth, color) != (8, 2) or len(zlib.decompress(idat)) != \
+            h * (1 + 3 * w):
+        raise AssertionError(f"{path}: {w}x{h} depth {depth} type {color}")
+    return w, h
+
+
+def _main_mnist() -> None:
+    """Phase 14c."""
+    from unet_design_tpu_torch.examples import main_mnist
+    from unet_design_tpu_torch.ops import haar
+    out = os.path.join(HERE, "runs", "chip_smoke_main_mnist")
+    shutil.rmtree(out, ignore_errors=True)
+    before = haar.launches
+    t0 = time.perf_counter()
+    path = main_mnist.main(["--steps", "20", "--out", out])
+    secs = time.perf_counter() - t0
+    size = _png_size(path)
+    sps = [r["train/steps_per_sec"] for r in _records(out)
+           if "train/steps_per_sec" in r]
+    log(f"[main_mnist] 20 steps (unet, 32 ch, batch 64, 32 px) and 16 "
+        f"samples: {secs:.2f} s with set-up, steps/s {sps}; samples.png "
+        f"{size[0]}x{size[1]} on {card_line()}")
+    if size != (128, 128) or haar.launches != before:
+        raise AssertionError(f"main_mnist: {size}, launches "
+                             f"{haar.launches - before}")
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def phase_last() -> int:
+    """Phase 14: CelebA through the VP trainer, ``fid_proof`` staged and
+    ``main_mnist``; returns the Haar launches of the CelebA run."""
+    t0 = time.perf_counter()
+    launches = _celeba_vp()
+    log(f"[last] 14a CelebA VP {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _fid_proof()
+    log(f"[last] 14b fid_proof {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _main_mnist()
+    log(f"[last] 14c main_mnist {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2252,15 +2579,16 @@ def main() -> int:
     stream_launches = timed("stream", phase_stream, sw_data)
     bf16_launches = timed("bf16", phase_bf16, device, fp32_forward_ms)
     par_launches = timed("parallel", phase_parallel)
+    celeba_launches = timed("last", phase_last)
     log(f"[launches] haar_pyramid per path: PDE staged training "
         f"{pde_launches}, DDPM staged training {ddpm_launches}, VP staged "
         f"training {mnist_launches}, WMH staged training {wmh_launches}, "
         f"PDE streamed training {stream_launches}, bf16 / remat PDE and "
         f"WMH training {bf16_launches}, data-parallel ranks' training "
-        f"{par_launches}")
+        f"{par_launches}, CelebA VP training {celeba_launches}")
     record["launches"] = (pde_launches + ddpm_launches + mnist_launches
                           + wmh_launches + stream_launches + bf16_launches
-                          + par_launches)
+                          + par_launches + celeba_launches)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [record]}))
     print(card_line())

@@ -54,6 +54,12 @@ def _x(shape, dtype, device, seed=0, misalign=0):
     ((128, 64, 64, 1), 4, torch.float32),  # diff_mnist, one channel
     ((128, 32, 32, 1), 3, torch.float32),
     ((128, 16, 16, 1), 2, torch.float32),
+    ((128, 64, 64, 3), 4, torch.float32),  # diff_mnist on CelebA64, RGB
+    ((128, 32, 32, 3), 3, torch.float32),
+    ((128, 16, 16, 3), 2, torch.float32),
+    ((128, 64, 64, 3), 4, torch.bfloat16),
+    ((128, 32, 32, 3), 3, torch.bfloat16),
+    ((128, 16, 16, 3), 2, torch.bfloat16),
     ((32, 200, 200, 2), 4, torch.float32),  # WMH image, stages 0, 1, 2
     ((32, 200, 200, 2), 3, torch.float32),
     ((32, 200, 200, 2), 2, torch.float32),

@@ -98,8 +98,7 @@ def test_figures_need_matplotlib(override, monkeypatch):
 
 
 @pytest.mark.parametrize("override", ["parallel.model=2",
-                                      "parallel.spatial=2",
-                                      "data.dataset=celeba"])
+                                      "parallel.spatial=2"])
 def test_unported_options_raise(tmp_path, override):
     cfg = tconfig.parse_cli(tdm.Config, [override, "device=cpu",
                                          f"train.logdir={tmp_path}"])

@@ -1,5 +1,5 @@
 """diff_mnist: staged multi-resolution VP diffusion on MNIST /
-MNIST-Triangular, on one GPU or data-parallel on several.
+MNIST-Triangular / CelebA64, on one GPU or data-parallel on several.
 
 Port of ``unet_design_tpu/tasks/diff_mnist.py`` (``train`` :197-484,
 ``sample``, ``superres_sample``, ``unet_norm_figure``, ``test_eval``,
@@ -33,9 +33,6 @@ nothing (``:456-481``).
 With ``parallel.data=N`` (``parallel/mesh.py``) each of N ranks takes its
 rows of every global batch and of the global draws, the gradients are
 averaged over the ranks, and rank 0 alone draws the figures.
-
-Not ported yet (``NotImplementedError``, ``ROADMAP.md`` queue A):
-``data.dataset=celeba`` (its LMDB reader, item 14a).
 
 Run: ``python -m unet_design_tpu_torch.tasks.diff_mnist --config <yaml>
 [k=v ...]``.
@@ -101,7 +98,8 @@ class DiffusionConfig:
 
 @dataclasses.dataclass
 class DataConfig:
-    dataset: str = "synthetic"      # mnist | mnist_triangular | synthetic
+    # mnist | mnist_triangular | celeba | synthetic
+    dataset: str = "synthetic"
     root: str = "./datasets"
     resolution: int = 32
     batch_size: int = 128
@@ -198,6 +196,8 @@ def load_dataset(cfg: DataConfig) -> np.ndarray:
         x = tri_data.make_triangular_dataset(
             imgs, to_square_preprocess=cfg.to_square_preprocess)
         x = x * 2.0 - 1.0
+    elif cfg.dataset == "celeba":
+        x = image_data.load_celeba64(cfg.root)
     elif cfg.dataset == "synthetic":
         x, _ = image_data.synthetic_mnist(cfg.synthetic_size,
                                           size=cfg.resolution)
@@ -207,6 +207,19 @@ def load_dataset(cfg: DataConfig) -> np.ndarray:
         raise ValueError(f"images of {x.shape[1]} px, data.resolution is "
                          f"{cfg.resolution}")
     return x
+
+
+# the images' channels by dataset, so that a model is built without
+# reading the set (CelebA's is ~8 GB as float32)
+DATASET_CHANNELS = {"mnist": 1, "mnist_triangular": 1, "celeba": 3,
+                    "synthetic": 1}
+
+
+def dataset_channels(cfg: DataConfig) -> int:
+    """The channel count of :func:`load_dataset`'s images."""
+    if cfg.dataset not in DATASET_CHANNELS:
+        raise ValueError(f"dataset {cfg.dataset!r}")
+    return DATASET_CHANNELS[cfg.dataset]
 
 
 def _superres_levels(cfg: Config) -> Tuple[bool, int, int]:
@@ -246,15 +259,6 @@ def check_config(cfg: Config) -> None:
     if (tc.do_superres and cfg.model.name == "unet_wavelet" and n_stages > 1
             and _superres_levels(cfg)[0]):
         visualization.require_matplotlib("train.do_superres")
-
-
-def _check_ported(cfg: Config) -> None:
-    """Reject what this slice of the port does not implement yet."""
-    todo = "is not ported yet (ROADMAP.md, queue A: {})"
-    mesh.check_axes(cfg.parallel)
-    if cfg.data.dataset == "celeba":
-        raise NotImplementedError("data.dataset=celeba " + todo.format(
-            "14a, the CelebA64 LMDB reader"))
 
 
 def draw_t_noise(generator: torch.Generator, x0: torch.Tensor,
@@ -372,13 +376,13 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
     With ``parallel.data`` > 1 this starts (or joins) the ranks and returns
     rank 0's state.
     """
-    _check_ported(cfg)        # before a train_id's run is looked up
+    mesh.check_axes(cfg.parallel)   # before a train_id's run is looked up
     cfg = config_lib.restore_run_config(cfg)
     check_config(cfg)
-    _check_ported(cfg)        # what a restored run's config asks for
+    mesh.check_axes(cfg.parallel)   # what a restored run's config asks for
     if mesh.needs_launch(cfg.parallel):
         return trainer.launch(train, cfg, params, lambda: build_model(
-            cfg, load_dataset(cfg.data).shape[-1]))
+            cfg, dataset_channels(cfg.data)))
     device = resolve_device(cfg.device)
     group = mesh.task_group(cfg.parallel, device)
     mesh.check_batch_divisible(group, cfg.data.batch_size,
@@ -498,10 +502,10 @@ def test_eval(cfg: Config) -> Dict[int, np.ndarray]:
         cfg.train.logdir = os.path.join(
             config_lib.resolve_run_dir(cfg.train.test_id), "eval")
     check_config(cfg)
-    _check_ported(cfg)
+    mesh.check_axes(cfg.parallel)
     device = resolve_device(cfg.device)
     tc = cfg.train
-    in_ch = load_dataset(cfg.data).shape[-1]
+    in_ch = dataset_channels(cfg.data)
     model = build_model(cfg, in_ch)
     is_wavelet = cfg.model.name == "unet_wavelet"
     n_levels = model.n_levels if is_wavelet else 1

@@ -16,7 +16,9 @@ with :func:`write_png`, built on ``zlib`` and ``struct``.  So the WMH
 trainer draws its overlay on every machine.  The file has the JAX
 package's name (``figures/valid_overlay_<step>.png``) but not its frame:
 one image pixel per array element, with no axes and no resampling to a
-4-inch figure.
+4-inch figure.  :func:`tile_grid` does the same for a sample grid (the
+MNIST example's ``samples.png``): the images side by side, with no title
+and no gaps.
 """
 
 from __future__ import annotations
@@ -66,6 +68,23 @@ def plot_sample_grid(images: np.ndarray, n_rows: int, n_cols: int,
         fig.suptitle(title)
     fig.tight_layout()
     return fig
+
+
+def tile_grid(images: np.ndarray, n_rows: int, n_cols: int) -> np.ndarray:
+    """The pixels of :func:`plot_sample_grid`'s panels, ``(n_rows H, n_cols
+    W, 3)`` in [0, 1]: ``(N, H, W, C)`` images in [-1, 1] or [0, 1] (by
+    the same test) tiled row by row, grey ones repeated over RGB, empty
+    panels black."""
+    imgs = np.asarray(images, np.float32)
+    if imgs.min() < -0.01:
+        imgs = (imgs + 1.0) / 2.0
+    n, h, w, c = imgs.shape
+    if c == 1:
+        imgs = np.repeat(imgs, 3, axis=-1)
+    grid = np.zeros((n_rows * n_cols, h, w, 3), np.float32)
+    grid[:min(n, len(grid))] = imgs[:len(grid)]
+    return grid.reshape(n_rows, n_cols, h, w, 3).transpose(
+        0, 2, 1, 3, 4).reshape(n_rows * h, n_cols * w, 3)
 
 
 def plot_square_grid(images, title: str = ""):
