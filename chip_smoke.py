@@ -179,13 +179,33 @@ prints no result line); each prints its seconds:
    step-8 point removed and the run relaunched with ``--resume``, which
    restores the step-8 checkpoint and scores it again (within 1 %)
    without a training step; (c) ``examples.main_mnist`` for 20 steps,
-   its ``samples.png`` a 128x128 RGB grid.
+   its ``samples.png`` a 128x128 RGB grid;
+15. the model and spatial axes (``parallel.model``, ``parallel.spatial``):
+   ranks started by ``mesh.launch`` share the card over gloo and train,
+   through the normal entry points with TF32 off, phase 13's arms at
+   other layouts, held against phase 13's one-rank runs at its
+   tolerances: the fp32 ``Unetbase-64_G`` at model=2 (its 512- and
+   1024-channel layers sharded: ``tp_min_channels`` 512), at spatial=2 and at
+   data=2 x spatial=2 (4 ranks), the CIFAR yaml's bf16 ``MultiResUNet``
+   at data=2 x model=2 with one evaluation there (rank 0 scores), and the
+   WMH arm at spatial=2; each rank's Haar launches (as many as one
+   rank's) are printed with their shapes, a slab's rows on the spatial
+   arms, and each launch's result is held against the plain version on
+   the same input bit for bit; the kernel is timed at those shapes as in
+   phase 2; where two or more cards are visible, NCCL ranks, one a card:
+   a column-parallel conv at model=2 and a halo conv and a gathered op
+   at spatial=2, each against the whole op, and the 2-rank arms (the
+   ``Unetbase-64_G`` at model=2 with the default ``tp_min_channels`` 128,
+   and at spatial=2; WMH at spatial=2) and, on four cards, the 4-rank
+   arms, held against one rank as above.  Each arm's steps/s is
+   printed beside one rank's, marked as ranks sharing one card (not a
+   scaling figure).
 
 Kernel launches are counted on each training path alone (the count is set
 to 0 just before it and read just after) and printed per path; the
 kernels' JSON record carries their sum, phase 11's streamed path,
-phase 12's bf16 / remat paths, phase 13's ranks and phase 14's CelebA
-run among them.  The line
+phase 12's bf16 / remat paths, phase 13's and phase 15's ranks and
+phase 14's CelebA run among them.  The line
 before the last is ``nvidia-smi``'s name and power limit; the one before that, the kernels'
 JSON record; the last line, ``{"ok": true, "device": {...}}``.  Imports
 nothing of JAX.
@@ -2063,49 +2083,71 @@ PAR_EVAL_IMAGES = 64
 PAR_WMH_SLICES = 107      # 96 training slices (3 steps of 32), 11 valid
 
 
-def _par_configs(root: str, data: int) -> dict:
-    """Phase 13's arms at ``parallel.data=data``: phase 12's fp32
-    ``Unetbase-64_G`` run (2 stages of 3 steps, batch 8), the CIFAR yaml's
-    ``MultiResUNet`` (bf16, dropout 0.1, batch 128) from host batches for
-    2 stages of 2 steps, and the WMH yaml's model at 200x200, batch 32,
-    one epoch of 3 steps with the multi-res Dice loss."""
-    pde_cfg = _bf16_slice_config(os.path.join(root, f"pde_dp{data}"),
+def _par_configs(root: str, data: int, model: int = 1,
+                 spatial: int = 1) -> dict:
+    """Phase 13's arms at ``parallel.data=data`` (phase 15's also at
+    ``model`` and ``spatial``): phase 12's fp32 ``Unetbase-64_G`` run (2
+    stages of 3 steps, batch 8), the CIFAR yaml's ``MultiResUNet`` (bf16,
+    dropout 0.1, batch 128) from host batches for 2 stages of 2 steps, and
+    the WMH yaml's model at 200x200, batch 32, one epoch of 3 steps with
+    the multi-res Dice loss."""
+    tag = f"dp{data}" + (f"_m{model}_s{spatial}"
+                         if model > 1 or spatial > 1 else "")
+    pde_cfg = _bf16_slice_config(os.path.join(root, f"pde_{tag}"),
                                  False, False)
-    cifar = _ddpm_config(os.path.join(root, f"cifar_dp{data}"), 0, None)
+    cifar = _ddpm_config(os.path.join(root, f"cifar_{tag}"), 0, None)
     t = cifar.train
     t.num_iterations_list, t.stop_after_steps, t.eval_step = [2, 2], 0, 0
     cifar.data.device_cache = False
-    wmh_cfg = _wmh_config(os.path.join(root, f"wmh_dp{data}"), 0)
+    wmh_cfg = _wmh_config(os.path.join(root, f"wmh_{tag}"), 0)
     wmh_cfg.data.synthetic_size = PAR_WMH_SLICES
     wmh_cfg.train.num_epochs_list, wmh_cfg.train.stop_after_epochs = [1], 0
     wmh_cfg.train.freeze_lower_res = False
     arms = {"pde": ("pde", pde_cfg), "cifar": ("diff_cifar", cifar),
             "wmh": ("wmh", wmh_cfg)}
     for _, cfg in arms.values():
-        cfg.parallel.data = data
+        cfg.parallel.data, cfg.parallel.model = data, model
+        cfg.parallel.spatial = spatial
     return arms
 
 
 def _par_train(arms: dict, group) -> dict:
-    """Train each arm (in ``group``'s ranks, or alone with None): seconds,
-    Haar launches and, for the CIFAR arm, one evaluation of
-    ``PAR_EVAL_IMAGES`` DPM-Solver-20 samples."""
+    """Train each arm (in ``group``'s ranks, or alone with None; a
+    callable ``group`` gives the group of an arm's config): seconds, Haar
+    launches with the shape and level count of each launch and whether
+    its result equals the plain version's bit for bit, and, for the CIFAR
+    arm, one evaluation of ``PAR_EVAL_IMAGES`` DPM-Solver-20 samples."""
     import importlib
     from unet_design_tpu_torch.ops import haar
     from unet_design_tpu_torch.process import diffusion
     from unet_design_tpu_torch.tasks import diff_cifar
     from unet_design_tpu_torch.train import trainer
+    calls = []
+    kernel = haar.haar_pyramid
+
+    def recorded(x, n_levels):
+        before = haar.launches
+        out = kernel(x, n_levels)
+        if haar.launches > before:   # the plain version is not counted
+            ref = haar.haar_pyramid_reference(x, n_levels)
+            calls.append((tuple(x.shape), n_levels, all(
+                torch.equal(a, b) for a, b in zip(out, ref))))
+        return out
+    haar.haar_pyramid = recorded
     out = {}
     for name, (task, cfg) in arms.items():
+        arm_group = group(cfg) if callable(group) else group
         torch.cuda.synchronize()
         haar.launches = 0   # this arm's training path starts here
+        calls.clear()
         t0 = time.perf_counter()
         state = importlib.import_module(
             f"unet_design_tpu_torch.tasks.{task}").train(cfg)
         torch.cuda.synchronize()
         out[name] = {"secs": time.perf_counter() - t0,
-                     "launches": haar.launches}   # ... and ends here
-        if name == "cifar":
+                     "launches": haar.launches,   # ... and ends here
+                     "calls": sorted(set(calls)), "n_calls": len(calls)}
+        if task == "diff_cifar":
             # the last stage's levels and resolution (2 levels at 8x8)
             d, dev = cfg.diffusion, next(state.model.parameters()).device
             sch = diffusion.DDPMSchedule.create(d.beta_1, d.beta_T,
@@ -2115,8 +2157,9 @@ def _par_train(arms: dict, group) -> dict:
                 cfg, state.model, state.ema, sch, 2, 8,
                 num_images=PAR_EVAL_IMAGES,
                 generator=trainer.seeded_generator(dev, cfg.train.seed,
-                                                   20_000), group=group)
+                                                   20_000), group=arm_group)
             out[name]["eval_secs"] = time.perf_counter() - t0
+    haar.haar_pyramid = kernel
     return out
 
 
@@ -2169,11 +2212,37 @@ def _par_records(logdir: str, keys: tuple) -> dict:
     return {k: [r[k] for r in records if k in r] for k in keys}
 
 
-def _par_arms(configs=_par_configs) -> int:
+PAR_ROOT = os.path.join(HERE, "runs", "chip_smoke_parallel")
+PAR_KEYS = {"pde": ("train/loss_mean", "valid/loss/mse",
+                    "valid/unrolled_loss_mean"),
+            "cifar": ("train/loss", "train/grad_norm"),
+            "wmh": ("train/loss", "valid/loss", "test/loss")}
+
+
+def _par_check(tag: str, arm: str, got: dict, one: dict) -> None:
+    """``got``'s logged series against one rank's ``one`` at phase 13's
+    tolerances (the CIFAR arm, bf16: within ``BF16_TOL`` of the scale)."""
+    for k in PAR_KEYS[arm]:
+        a, b = np.asarray(got[k]), np.asarray(one[k])
+        if arm == "cifar":   # bf16: the smoke's bf16 check
+            tol = BF16_TOL * float(np.abs(b).max())
+            bad = a.shape != b.shape or np.abs(a - b).max() > tol
+        else:
+            rtol = PAR_WMH_TOL if arm == "wmh" else PAR_TOL
+            bad = a.shape != b.shape or not np.allclose(a, b, rtol=rtol,
+                                                        atol=0)
+        log(f"[{tag}] {arm} {k}: ranks {a.tolist()} one rank "
+            f"{b.tolist()}")
+        if bad or not len(b) or not np.isfinite(a).all():
+            raise AssertionError(f"{tag} {arm} {k}: {a} vs {b}")
+
+
+def _par_arms(configs=_par_configs) -> tuple:
     """Phase 13's two ranks against one on ``configs``' arms; returns the
-    ranks' Haar launches."""
+    ranks' Haar launches and the one-rank runs (phase 15's references,
+    kept under ``PAR_ROOT``)."""
     from unet_design_tpu_torch.parallel import mesh
-    root = os.path.join(HERE, "runs", "chip_smoke_parallel")
+    root = PAR_ROOT
     shutil.rmtree(root, ignore_errors=True)
     t0 = time.perf_counter()
     single = _par_train(configs(root, 1), None)
@@ -2188,10 +2257,7 @@ def _par_arms(configs=_par_configs) -> int:
         f"{ranks[0]['backend']} (two ranks sharing one card: not a "
         f"scaling figure), {ranks_s:.1f} s with their start; one rank "
         f"{single_s:.1f} s; on {card_line()}")
-    keys = {"pde": ("train/loss_mean", "valid/loss/mse",
-                    "valid/unrolled_loss_mean"),
-            "cifar": ("train/loss", "train/grad_norm"),
-            "wmh": ("train/loss", "valid/loss", "test/loss")}
+    keys = PAR_KEYS
     sps = ("train/steps_per_sec",)
     for arm in keys:
         one = _par_records(os.path.join(root, f"{arm}_dp1"), keys[arm] + sps)
@@ -2202,19 +2268,7 @@ def _par_arms(configs=_par_configs) -> int:
             f"{[round(r[arm]['secs'], 2) for r in ranks]}; Haar launches "
             f"one rank {single[arm]['launches']}, ranks "
             f"{[r[arm]['launches'] for r in ranks]}")
-        for k in keys[arm]:
-            a, b = np.asarray(two[k]), np.asarray(one[k])
-            if arm == "cifar":   # bf16: the smoke's bf16 check
-                tol = BF16_TOL * float(np.abs(b).max())
-                bad = a.shape != b.shape or np.abs(a - b).max() > tol
-            else:
-                rtol = PAR_WMH_TOL if arm == "wmh" else PAR_TOL
-                bad = a.shape != b.shape or not np.allclose(a, b, rtol=rtol,
-                                                            atol=0)
-            log(f"[parallel] {arm} {k}: two ranks {a.tolist()} one rank "
-                f"{b.tolist()}")
-            if bad or not len(b) or not np.isfinite(a).all():
-                raise AssertionError(f"phase 13 {arm} {k}: {a} vs {b}")
+        _par_check("parallel", arm, two, one)
     # each rank launches the kernel as one rank does: PDE 3 a stage,
     # CIFAR 2 in stage 1, none in the WMH arm's one stage
     for arm, want in (("pde", 6), ("cifar", 2), ("wmh", 0)):
@@ -2228,15 +2282,14 @@ def _par_arms(configs=_par_configs) -> int:
     if (ranks[1]["cifar"]["eval"] != {} or not np.isfinite(scores["IS"])
             or scores.get("untrusted_random_inception_weights") != 1.0):
         raise AssertionError(f"sharded evaluate: {scores}")
-    shutil.rmtree(root, ignore_errors=True)
-    return sum(r[a]["launches"] for r in ranks for a in keys)
+    return sum(r[a]["launches"] for r in ranks for a in keys), single
 
 
 def phase_parallel() -> int:
     """Phase 13: data parallelism on the card (see the module's
     docstring); returns the Haar launches of the two ranks' training."""
     from unet_design_tpu_torch.parallel import mesh
-    launches = _par_arms()
+    launches, single = _par_arms()
     n = min(2, torch.cuda.device_count())
     t0 = time.perf_counter()
     nccl = mesh.launch(_nccl_rank, parallel=mesh.ParallelConfig(data=n),
@@ -2248,6 +2301,234 @@ def phase_parallel() -> int:
         f"({time.perf_counter() - t0:.1f} s with its start)")
     if nccl["backend"] != "nccl" or not nccl["ok"]:
         raise AssertionError(f"NCCL helpers: {nccl}")
+    return launches, single
+
+
+AXES_TP_MIN = 512        # phase 15's Unetbase-64_G at model=2 over gloo
+# phase 15: arm -> (world, phase 13 arm, data, model, spatial)
+AXES_ARMS = {"pde_m2": (2, "pde", 1, 2, 1), "pde_s2": (2, "pde", 1, 1, 2),
+             "wmh_s2": (2, "wmh", 1, 1, 2),
+             "pde_d2s2": (4, "pde", 2, 1, 2),
+             "cifar_d2m2": (4, "cifar", 2, 2, 1)}
+
+
+def _axes_configs(root: str, world: int, tp_min=AXES_TP_MIN) -> dict:
+    """Phase 15's arms of ``world`` ranks (``AXES_ARMS``), each phase 13's
+    arm at its layout; the ``Unetbase-64_G`` at model=2 shards from
+    ``tp_min`` channels (None: the config's default, 128)."""
+    arms = {}
+    for name, (w, arm, d, m, s) in AXES_ARMS.items():
+        if w == world:
+            arms[name] = _par_configs(root, d, m, s)[arm]
+            if name == "pde_m2" and tp_min is not None:
+                # the blocks of the 8c and 16c levels (16x16 and 8x8
+                # maps): at 128 channels every gather of a 128x128 map
+                # crosses the host between ranks that share the card
+                arms[name][1].parallel.tp_min_channels = tp_min
+    return arms
+
+
+def _axes_rank(arms: dict) -> list:
+    """What each rank of a phase-15 launch runs; every rank's results."""
+    import torch.distributed as dist
+    from unet_design_tpu_torch.parallel import mesh
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"rank": dist.get_rank(), "device": str(dev),
+           "backend": dist.get_backend(),
+           **_par_train(arms, lambda cfg: mesh.task_group(cfg.parallel,
+                                                          dev))}
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, out)
+    return gathered
+
+
+def _rel_err(pairs) -> float:
+    """The largest of ``max |a - b| / max |b|`` over ``pairs``."""
+    return max(float((a - b).abs().max() / b.abs().max()) for a, b in pairs)
+
+
+def _nccl_tp_rank() -> dict:
+    """A column-parallel conv over NCCL, one rank a card, against the
+    same conv whole on each rank (forward and gradients, fp32)."""
+    import torch.distributed as dist
+    from unet_design_tpu_torch.ops import blocks
+    from unet_design_tpu_torch.parallel import mesh, tensor
+    dev = torch.device("cuda", torch.cuda.current_device())
+    group = mesh.task_group(mesh.ParallelConfig(model=2), dev)
+    torch.manual_seed(0)
+    conv = blocks.Conv2d(64, 256, 3, padding=1).to(dev)
+    ref = blocks.Conv2d(64, 256, 3, padding=1).to(dev)
+    ref.load_state_dict(conv.state_dict())
+    tensor.shard_model_(conv, group, 128)
+    x = torch.randn(4, 64, 32, 32, device=dev, generator=torch.Generator(
+        dev).manual_seed(1))
+    xa, xb = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    ya, yb = conv(xa), ref(xb)
+    ya.square().sum().backward()
+    yb.square().sum().backward()
+    w = tensor.full_tensors(conv, {"weight": conv.weight.grad})["weight"]
+    # forward, input gradient, weight gradient: each relative to its scale
+    err = _rel_err(((ya.detach(), yb.detach()), (xa.grad, xb.grad),
+                    (w, ref.weight.grad)))
+    return {"backend": dist.get_backend(), "world": dist.get_world_size(),
+            "err": err}
+
+
+def _nccl_sp_rank() -> dict:
+    """At spatial=2 over NCCL, one rank a card: a 3x3 conv on a slab (its
+    halo rows exchanged), then an op on the whole field (``spatial.whole``:
+    gathered, a cumulative sum over all rows, this rank's slab kept),
+    against the same on the whole field on each rank: forward, input and
+    weight gradients (fp32), each relative to its scale."""
+    import torch.distributed as dist
+    from unet_design_tpu_torch.ops import blocks
+    from unet_design_tpu_torch.parallel import mesh, spatial
+    dev = torch.device("cuda", torch.cuda.current_device())
+    group = mesh.task_group(mesh.ParallelConfig(spatial=2), dev)
+    torch.manual_seed(0)
+    conv = blocks.Conv2d(16, 32, 3, padding=1).to(dev)
+    ref = blocks.Conv2d(16, 32, 3, padding=1).to(dev)
+    ref.load_state_dict(conv.state_dict())
+    gen = torch.Generator(dev).manual_seed(1)
+    rows = 64
+    x = torch.randn(2, 16, rows, 48, device=dev, generator=gen)
+    c = torch.randn(2, 32, rows, 48, device=dev, generator=gen)
+    k, s = rows // 2, group.spatial_index
+    xa = x[:, :, s * k:(s + 1) * k].clone().requires_grad_(True)
+    xb = x.clone().requires_grad_(True)
+    with spatial.field(group, rows):
+        ya = spatial.whole(lambda v: v.cumsum(2), conv(xa), 2)
+        (ya * c[:, :, s * k:(s + 1) * k]).sum().backward()
+    yb = ref(xb).cumsum(2)
+    (yb * c).sum().backward()
+    w = conv.weight.grad.clone()
+    dist.all_reduce(w, group=group.spatial_group)   # the slabs' parts
+    err = _rel_err(((ya.detach(), yb.detach()[:, :, s * k:(s + 1) * k]),
+                    (xa.grad, xb.grad[:, :, s * k:(s + 1) * k]),
+                    (w, ref.weight.grad)))
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, err)
+    return {"backend": dist.get_backend(), "world": dist.get_world_size(),
+            "err": max(out)}
+
+
+def _axes_check(tag: str, ranks: dict, root: str, single: dict) -> tuple:
+    """Each arm in ``ranks`` (its ranks' results, logged under ``root``)
+    against phase 13's one-rank runs; returns the ranks' Haar launches and
+    the shapes they launched at."""
+    sps = ("train/steps_per_sec",)
+    launches, shapes = 0, set()
+    for name, rs in ranks.items():
+        world, arm, d, m, s = AXES_ARMS[name]
+        one = _par_records(os.path.join(PAR_ROOT, f"{arm}_dp1"),
+                           PAR_KEYS[arm] + sps)
+        got = _par_records(os.path.join(root, f"{arm}_dp{d}_m{m}_s{s}"),
+                           PAR_KEYS[arm] + sps)
+        log(f"[{tag}] {name} (data={d} x model={m} x spatial={s}): steps/s "
+            f"one rank {one['train/steps_per_sec']}, {world} ranks "
+            f"{got['train/steps_per_sec']}; seconds one rank "
+            f"{single[arm]['secs']:.2f}, ranks "
+            f"{[round(r['secs'], 2) for r in rs]}; Haar launches one rank "
+            f"{single[arm]['launches']}, ranks {[r['launches'] for r in rs]}"
+            f"; each rank's launches (shape, levels, equal to the plain "
+            f"version bit for bit): {[r['calls'] for r in rs]}")
+        _par_check(tag, arm, got, one)
+        # each rank launches the kernel as one rank does, on its slab
+        if any(r["launches"] != single[arm]["launches"]
+               or r["n_calls"] != r["launches"] for r in rs):
+            raise AssertionError(f"{name} Haar launches: {rs}")
+        if not all(ok for r in rs for (_, _, ok) in r["calls"]):
+            raise AssertionError(f"{name}: a slab's kernel result differs "
+                                 f"from the plain version's: {rs}")
+        if s > 1 and arm == "pde" and not any(
+                shape[1] == 128 // s for r in rs
+                for (shape, _, _) in r["calls"]):
+            raise AssertionError(f"{name}: no launch on a slab: {rs}")
+        launches += sum(r["launches"] for r in rs)
+        shapes |= {(shape, n) for r in rs for (shape, n, _) in r["calls"]}
+    if "cifar_d2m2" in ranks:
+        rs = ranks["cifar_d2m2"]
+        scores = rs[0]["eval"]
+        log(f"[{tag}] evaluate at data=2 x model=2 of {PAR_EVAL_IMAGES} "
+            f"images: rank 0 {scores}, the others "
+            f"{[r['eval'] for r in rs[1:]]}; one rank "
+            f"{single['cifar']['eval']}")
+        if (any(r["eval"] != {} for r in rs[1:])
+                or not np.isfinite(scores["IS"])
+                or scores.get("untrusted_random_inception_weights") != 1.0):
+            raise AssertionError(f"evaluate at model=2: {scores}")
+    return launches, shapes
+
+
+def _axes_launch(tag: str, root: str, worlds, backend: str,
+                 tp_min=AXES_TP_MIN) -> dict:
+    """Phase 15's arms of each world size in ``worlds``, launched over
+    ``backend``; their ranks' results by arm."""
+    from unet_design_tpu_torch.parallel import mesh
+    ranks = {}
+    for world in worlds:
+        t0 = time.perf_counter()
+        got = mesh.launch(_axes_rank, _axes_configs(root, world, tp_min),
+                          parallel=mesh.ParallelConfig(data=world),
+                          device="cuda", backend=backend)
+        log(f"[{tag}] {world} ranks on {[r['device'] for r in got]} over "
+            f"{got[0]['backend']} "
+            + ("(ranks sharing one card: not a scaling figure)"
+               if len({r['device'] for r in got}) < world else
+               "(one rank a card)")
+            + f", {time.perf_counter() - t0:.1f} s with their start")
+        for name in got[0]:
+            if name in AXES_ARMS:
+                ranks[name] = [r[name] for r in got]
+    if set(ranks) != {n for n, a in AXES_ARMS.items() if a[0] in worlds}:
+        raise AssertionError(f"{tag}: arms {sorted(ranks)}")
+    return ranks
+
+
+def _axes_nccl(single: dict) -> None:
+    """Phase 15 on two or more cards: NCCL ranks, one a card (see the
+    module's docstring)."""
+    from unet_design_tpu_torch.parallel import mesh
+    nccl = mesh.launch(_nccl_tp_rank, parallel=mesh.ParallelConfig(model=2),
+                       device="cuda")
+    log(f"[axes-nccl] model=2, one rank a card: column-parallel conv "
+        f"against the whole conv, forward and gradients within "
+        f"{nccl['err']:.3g} of their scales")
+    if nccl["backend"] != "nccl" or nccl["err"] > 1e-4:
+        raise AssertionError(f"NCCL model=2: {nccl}")
+    nccl = mesh.launch(_nccl_sp_rank,
+                       parallel=mesh.ParallelConfig(spatial=2),
+                       device="cuda")
+    log(f"[axes-nccl] spatial=2, one rank a card: halo conv and gathered "
+        f"op against the whole field, forward and gradients within "
+        f"{nccl['err']:.3g} of their scales")
+    if nccl["backend"] != "nccl" or nccl["err"] > 1e-4:
+        raise AssertionError(f"NCCL spatial=2: {nccl}")
+    root = os.path.join(PAR_ROOT, "nccl")
+    worlds = (2, 4) if torch.cuda.device_count() >= 4 else (2,)
+    ranks = _axes_launch("axes-nccl", root, worlds, "nccl", tp_min=None)
+    _axes_check("axes-nccl", ranks, root, single)
+
+
+def phase_axes(single: dict) -> int:
+    """Phase 15: the model and spatial axes on the card (see the module's
+    docstring); ``single`` is phase 13's one-rank runs.  Returns the ranks'
+    Haar launches."""
+    from unet_design_tpu_torch.ops import haar
+    ranks = _axes_launch("axes", PAR_ROOT, (2, 4), "gloo")
+    launches, shapes = _axes_check("axes", ranks, PAR_ROOT, single)
+    # the kernel at the shapes the ranks gave it (their slabs)
+    rng = np.random.default_rng(15)
+    for shape, n_levels in sorted(shapes):
+        log(f"[axes] kernel at a rank's shape {shape} L{n_levels}:")
+        time_pyramid(haar, torch.from_numpy(rng.standard_normal(
+            shape).astype(np.float32)).cuda(), n_levels)
+    if torch.cuda.device_count() >= 2:
+        _axes_nccl(single)
+    else:
+        log("[axes] NCCL ranks not run: one card visible (NCCL takes a "
+            "card a rank)")
+    shutil.rmtree(PAR_ROOT, ignore_errors=True)
     return launches
 
 
@@ -2578,17 +2859,19 @@ def main() -> int:
     timed("cond", phase_cond)
     stream_launches = timed("stream", phase_stream, sw_data)
     bf16_launches = timed("bf16", phase_bf16, device, fp32_forward_ms)
-    par_launches = timed("parallel", phase_parallel)
+    par_launches, par_single = timed("parallel", phase_parallel)
     celeba_launches = timed("last", phase_last)
+    axes_launches = timed("axes", phase_axes, par_single)
     log(f"[launches] haar_pyramid per path: PDE staged training "
         f"{pde_launches}, DDPM staged training {ddpm_launches}, VP staged "
         f"training {mnist_launches}, WMH staged training {wmh_launches}, "
         f"PDE streamed training {stream_launches}, bf16 / remat PDE and "
         f"WMH training {bf16_launches}, data-parallel ranks' training "
-        f"{par_launches}, CelebA VP training {celeba_launches}")
+        f"{par_launches}, model- and spatial-axis ranks' training "
+        f"{axes_launches}, CelebA VP training {celeba_launches}")
     record["launches"] = (pde_launches + ddpm_launches + mnist_launches
                           + wmh_launches + stream_launches + bf16_launches
-                          + par_launches + celeba_launches)
+                          + par_launches + axes_launches + celeba_launches)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [record]}))
     print(card_line())

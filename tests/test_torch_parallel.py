@@ -92,8 +92,12 @@ def test_check_batch_divisible():
 @pytest.mark.parametrize("axes", [dict(model=2), dict(spatial=2),
                                   dict(data=2, model=2)])
 def test_model_and_spatial_axes_raise(axes):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*7f"):
-        mesh.check_axes(mesh.ParallelConfig(**axes))
+    """The model and spatial axes are taken: the world is data x model x
+    spatial ranks, which a trainer starts."""
+    p = mesh.ParallelConfig(**axes)
+    mesh.check_axes(p)
+    assert mesh.world_size(p) == 2 * (2 if len(axes) == 2 else 1)
+    assert mesh.needs_launch(p)
 
 
 @pytest.mark.parametrize("axes", [dict(data=3, num_processes=2),

@@ -213,10 +213,11 @@ def test_unknown_config_key_raises():
 
 @pytest.mark.parametrize("override", ["parallel.model=2"])
 def test_unported_options_raise(tmp_path, override):
+    """The model axis is taken: two ranks, no refusal."""
     cfg = tconfig.parse_cli(tpde.Config, [override, "device=cpu",
                                           f"train.logdir={tmp_path}"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpde.train(cfg)
+    assert tpde.check_parallel(cfg) == 2
+    assert tpde.mesh.needs_launch(cfg.parallel)
 
 
 @pytest.mark.parametrize("override", ["model.use_bf16=true",

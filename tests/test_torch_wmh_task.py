@@ -300,8 +300,8 @@ def test_real_data_path(tmp_path):
 
 def test_config_and_options():
     """``configs/wmh.yaml`` parses as the JAX package parses it (plus the
-    port's ``device``); what is not ported raises naming its ROADMAP
-    item."""
+    port's ``device``); the model and spatial axes are taken (two ranks
+    each: ``WMHSegUnet`` has guard sites, and 200 rows split)."""
     path = os.path.join(REPO, "configs", "wmh.yaml")
     ours = tconfig.to_dict(tconfig.parse_cli(twmh.Config, ["--config", path,
                                                            "train.seed=2"]))
@@ -309,11 +309,9 @@ def test_config_and_options():
                                                           "train.seed=2"]))
     assert ours.pop("device") == "cuda"
     assert ours == ref
-    for override, item in (("parallel.model=2", "7f"),
-                           ("parallel.spatial=2", "7f")):
+    for override in ("parallel.model=2", "parallel.spatial=2"):
         cfg = tconfig.parse_cli(twmh.Config, [override, "device=cpu"])
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            twmh.train(cfg)
+        assert twmh.check_parallel(cfg) == 2
 
 
 @pytest.mark.parametrize("option", ["use_bf16", "remat"])

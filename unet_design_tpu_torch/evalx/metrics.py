@@ -11,6 +11,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from unet_design_tpu_torch.process import losses
+
 
 def bootstrap(x: np.ndarray, n_members: int = 64, n_bootstrap: int = 1,
               seed: int = 0) -> Tuple[float, float]:
@@ -31,14 +33,17 @@ def bootstrap(x: np.ndarray, n_members: int = 64, n_bootstrap: int = 1,
 
 def rollout_mse_per_step(pred_traj: torch.Tensor, target_traj: torch.Tensor
                          ) -> torch.Tensor:
-    """MSE per rollout timestep over batch, space and fields -> (T,)."""
-    return ((pred_traj - target_traj) ** 2).mean(dim=(0, 2, 3, 4))
+    """MSE per rollout timestep over batch, space and fields -> (T,) (over
+    the slabs too on a slab of a spatial field)."""
+    s, n = losses.space_sum((pred_traj - target_traj) ** 2, (0, 2, 3, 4))
+    return s / n
 
 
 def rollout_mse_per_sample_step(pred_traj: torch.Tensor,
                                 target_traj: torch.Tensor) -> torch.Tensor:
     """Like :func:`rollout_mse_per_step` but keeps the batch axis -> (B, T)."""
-    return ((pred_traj - target_traj) ** 2).mean(dim=(2, 3, 4))
+    s, n = losses.space_sum((pred_traj - target_traj) ** 2, (2, 3, 4))
+    return s / n
 
 
 def unrolled_summaries(loss_vec: torch.Tensor) -> dict:

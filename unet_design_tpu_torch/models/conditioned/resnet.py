@@ -17,9 +17,8 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from unet_design_tpu_torch.models import common
+from unet_design_tpu_torch.models import common, resnet
 from unet_design_tpu_torch.models.conditioned.modern_unet import (
     ConditionEmbedding)
 from unet_design_tpu_torch.ops import blocks
@@ -84,13 +83,11 @@ class CondPDEResNet(ConditionEmbedding):
         emb = self.embed(time, z)
         h = common.to_nchw(common.collapse_time(x)).to(self.dtype)
         h = self.act(self.conv_in2(self.act(self.conv_in1(h))))
-        p = self.padding
-        if p > 0:
-            h = F.pad(h, (0, p, 0, p))            # bottom and right only
-        for i in range(self.n_blocks):
-            h = getattr(self, f"block_{i}")(h, emb)
-        if p > 0:
-            h = h[:, :, :-p, :-p]
+        def trunk(v):
+            for i in range(self.n_blocks):
+                v = getattr(self, f"block_{i}")(v, emb)
+            return v
+        h = resnet.padded(trunk, h, self.padding)
         h = self.act(self.conv_out1(h))
         out = self.conv_out2(h).permute(0, 2, 3, 1)
         return common.expand_time(out, self.n_output_fields)

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from unet_design_tpu_torch.models import common
 from unet_design_tpu_torch.ops import blocks, embeddings, wavelet
+from unet_design_tpu_torch.parallel import spatial
 
 Norms = Dict[str, Dict[int, List[torch.Tensor]]]
 
@@ -46,9 +47,11 @@ def _norms_entry(norms: Optional[Norms], section: str, level: int,
                  h: torch.Tensor) -> None:
     """The batch mean of each sample's activation norm (``:35-38``)."""
     if norms is not None:
+        # on a slab of a spatial field the squares are summed over the slabs
+        sq = spatial.slab_sum(h.float().square().reshape(h.shape[0], -1)
+                              .sum(-1))
         norms.setdefault(section, {}).setdefault(level, []).append(
-            torch.linalg.vector_norm(h.reshape(h.shape[0], -1),
-                                     dim=-1).mean())
+            sq.sqrt().mean())
 
 
 class _TimeEmbedMLP(nn.Module):
@@ -88,7 +91,8 @@ class _DownsampleOpenAI(nn.Module):
                       if use_conv else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv1(x) if self.conv1 is not None else F.avg_pool2d(x, 2)
+        return self.conv1(x) if self.conv1 is not None else \
+            blocks.avg_pool2(x)
 
 
 class _UpsampleOpenAI(nn.Module):
@@ -102,7 +106,7 @@ class _UpsampleOpenAI(nn.Module):
                                     dtype=dtype) if use_conv else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.interpolate(x, scale_factor=2, mode="nearest")
+        x = blocks.nearest_up2(x)
         return self.conv1(x) if self.conv1 is not None else x
 
 

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from unet_design_tpu_torch.models import common
 from unet_design_tpu_torch.ops import blocks
 from unet_design_tpu_torch.ops.spectral import SpectralConv2d
+from unet_design_tpu_torch.parallel import spatial
 
 
 class BasicBlock(nn.Module):
@@ -122,6 +123,18 @@ BLOCKS = {
 }
 
 
+def padded(fn, h: torch.Tensor, p: int) -> torch.Tensor:
+    """``fn`` on NCHW ``h`` zero-padded by ``p`` rows and columns at the
+    bottom and right, cropped back after; in a spatial field the pad and
+    the crop change the field's rows, so they run on the whole field."""
+    if p == 0:
+        return fn(h)
+    rows = spatial.state()
+    h = spatial.whole(lambda v: F.pad(v, (0, p, 0, p)), h, 2,
+                      None if rows is None else rows + p)
+    return spatial.whole(lambda v: v[:, :, :-p, :-p], fn(h), 2, rows)
+
+
 class PDEResNet(nn.Module):
     """``ResNet`` trunk (``twod_resnet.py:169-309``)."""
 
@@ -152,13 +165,11 @@ class PDEResNet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = common.to_nchw(common.collapse_time(x)).to(self.dtype)
         h = self.act(self.conv_in2(self.act(self.conv_in1(h))))
-        p = self.padding
-        if p > 0:
-            h = F.pad(h, (0, p, 0, p))            # bottom and right only
-        for i in range(self.n_blocks):
-            h = getattr(self, f"block_{i}")(h)
-        if p > 0:
-            h = h[:, :, :-p, :-p]
+        def trunk(v):
+            for i in range(self.n_blocks):
+                v = getattr(self, f"block_{i}")(v)
+            return v
+        h = padded(trunk, h, self.padding)
         h = self.act(self.conv_out1(h))
         out = self.conv_out2(h).permute(0, 2, 3, 1)
         return common.expand_time(out, self.n_output_fields)

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from unet_design_tpu_torch.models import common
 from unet_design_tpu_torch.ops import blocks
@@ -39,7 +38,8 @@ class BatchNorm(nn.Module):
     eps 1e-5; momentum 0.99): ``weight`` / ``bias`` are flax's ``scale`` /
     ``bias``, ``running_mean`` / ``running_var`` its ``mean`` / ``var``.
     In a data-parallel step the statistics are the global batch's, as
-    GSPMD computes them (``mesh.batch_mean``, with its gradient)."""
+    GSPMD computes them (``mesh.batch_mean``, with its gradient), over the
+    slabs too on a slab of a spatial field."""
 
     def __init__(self, channels: int, momentum: float = 0.99,
                  eps: float = 1e-5):
@@ -127,10 +127,10 @@ class Unet2015(nn.Module):
         enc = []
         for i in range(len(self.MULTS)):
             if i > 0:
-                h = F.max_pool2d(h, 2)
+                h = blocks.max_pool2(h)
             h = getattr(self, f"encoder{i + 1}")(h)
             enc.append(h)
-        h = self.bottleneck(F.max_pool2d(h, 2))
+        h = self.bottleneck(blocks.max_pool2(h))
         for level in range(len(self.MULTS), 0, -1):
             h = getattr(self, f"upconv{level}")(h)
             h = getattr(self, f"decoder{level}")(torch.cat([h, enc.pop()],

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from unet_design_tpu_torch.models import common
 from unet_design_tpu_torch.ops import blocks, wavelet
+from unet_design_tpu_torch.parallel import spatial
 
 
 class Unetbase(nn.Module):
@@ -61,7 +62,7 @@ class Unetbase(nn.Module):
         h = common.to_nchw(common.collapse_time(x))
         skips = [self.image_proj(h)]
         for i in range(4):
-            d = F.max_pool2d(skips[-1], 2)
+            d = blocks.max_pool2(skips[-1])
             skips.append(getattr(self, f"down_{i}")(d))
         h = skips.pop()
         for i in range(4):
@@ -71,9 +72,22 @@ class Unetbase(nn.Module):
         return common.expand_time(out, self.n_output_fields)
 
 
-def _match_spatial(h: torch.Tensor, target_hw: Sequence[int]) -> torch.Tensor:
+def _match_spatial(h: torch.Tensor, target_hw: Sequence[int],
+                   target_rows: Optional[int] = None) -> torch.Tensor:
     """Replicate-pad (top/left) or crop (top/left) NCHW ``h`` to the target
-    H, W (non-dyadic resolutions such as WMH's 25 -> 13)."""
+    H, W (non-dyadic resolutions such as WMH's 25 -> 13).  In a spatial
+    field ``target_rows`` is the target's global H, and a change of H runs
+    on the whole field."""
+    if target_rows is not None:
+        if spatial.rows(h, 2) == target_rows:
+            return _match(h, (h.shape[2], target_hw[1]))
+        return spatial.whole(
+            lambda v: _match(v, (target_rows, target_hw[1])), h, 2,
+            target_rows)
+    return _match(h, target_hw)
+
+
+def _match(h: torch.Tensor, target_hw: Sequence[int]) -> torch.Tensor:
     th, tw = target_hw
     dh, dw = h.shape[2] - th, h.shape[3] - tw
     if dh > 0:
@@ -175,6 +189,7 @@ class UnetbaseGCore(nn.Module):
         h = self._block(f"image_proj_{entry}", x.to(self.dtype))
 
         skips = [h]
+        skip_rows = [spatial.state()]   # global rows in a spatial field
         for i in range(entry, self.n_levels):
             if self.dwt_encoder:
                 octaves = 0 if self.no_down_up else 1
@@ -182,10 +197,11 @@ class UnetbaseGCore(nn.Module):
                                       self.down_out[i])
             else:
                 if not self.no_down_up:
-                    h = F.avg_pool2d(h, 2)
+                    h = blocks.avg_pool2(h)
                 h = self._block(f"down_{i}", h)
             if i != self.n_levels - 1:
                 skips.append(h)
+                skip_rows.append(spatial.state())
 
         outs: List[torch.Tensor] = []
         for j in range(n):
@@ -196,7 +212,7 @@ class UnetbaseGCore(nn.Module):
                 up = getattr(self, f"up_{j}_chconv")(h)
                 if not self.no_down_up:
                     up = common.apply_nhwc(blocks.nearest_upsample, up, 2)
-            up = _match_spatial(up, s.shape[2:])
+            up = _match_spatial(up, s.shape[2:], skip_rows.pop())
             if self.no_skip_connection:
                 s = torch.zeros_like(s)
             h = self._block(f"up_{j}", torch.cat([s, up], dim=1))

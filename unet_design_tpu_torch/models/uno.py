@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from unet_design_tpu_torch.models import common
 from unet_design_tpu_torch.ops import blocks
 from unet_design_tpu_torch.ops.spectral import SpectralConv2dUno
+from unet_design_tpu_torch.parallel import spatial
 
 
 def _keys_cubic(x: np.ndarray) -> np.ndarray:
@@ -73,6 +74,15 @@ class CubicResize(nn.Module):
 
     def forward(self, x: torch.Tensor, out_hw: Tuple[int, int]
                 ) -> torch.Tensor:
+        """On the whole field of a spatial field when H changes (the
+        output is the field's new level)."""
+        if spatial.rows(x, 2) == out_hw[0]:   # H stays: a slab stays one
+            return self._resize(x, (x.shape[2], out_hw[1]))
+        return spatial.whole(lambda v: self._resize(v, out_hw), x, 2,
+                             out_hw[0])
+
+    def _resize(self, x: torch.Tensor, out_hw: Tuple[int, int]
+                ) -> torch.Tensor:
         for dim, n_out in ((2, out_hw[0]), (3, out_hw[1])):
             n_in = x.shape[dim]
             if n_in == n_out:
@@ -98,6 +108,9 @@ class InstanceNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if spatial.local_field(x, 2) is not None:   # statistics over slabs
+            return blocks._slab_norm(x, x.shape[1], self.weight, self.bias,
+                                     self.eps)
         xf = x.float()
         mean = xf.mean(dim=(2, 3), keepdim=True)
         var = (xf - mean).square().mean(dim=(2, 3), keepdim=True)
@@ -124,7 +137,11 @@ class OperatorBlock2D(nn.Module):
 
     def forward(self, x: torch.Tensor, out_hw: Tuple[int, int]
                 ) -> torch.Tensor:
-        out = self.conv(x, out_hw) + self.resize(self.pointwise(x), out_hw)
+        # the resized side first, at the input's level; the spectral conv
+        # then moves the field to the output's
+        with spatial.at(spatial.state()):
+            side = self.resize(self.pointwise(x), out_hw)
+        out = self.conv(x, out_hw) + side
         return F.gelu(self.inorm(out))
 
 
@@ -168,7 +185,7 @@ class UNO(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.act(self.fc(common.collapse_time(x).to(self.dtype)))  # NHWC
         h = self.act(self.fc0(h)).permute(0, 3, 1, 2)
-        d1, d2 = h.shape[2], h.shape[3]
+        d1, d2 = spatial.rows(h, 2), h.shape[3]
         f = self.FACTOR
         g_f = (int(d1 * f), int(d2 * f))
         g_2, g_4 = (d1 // 2, d2 // 2), (d1 // 4, d2 // 4)

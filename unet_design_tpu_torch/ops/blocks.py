@@ -34,6 +34,14 @@ rounding), where flax adds it to the rounded output (two).
 
 :func:`checkpoint` is ``nn.remat`` of a block: activations recomputed in
 the backward, the dropout masks of an explicit generator replayed.
+
+Parallel layouts (``parallel/``): a conv, transposed conv or dense layer
+that holds a block of its output channels (``parallel/tensor.py``)
+computes them and gathers the rest; inside a spatial field
+(``parallel/spatial.py``) a conv on a slab takes its neighbours' halo rows,
+GroupNorm sums its statistics over the slabs, the attention blocks gather
+the field, and the resolution changes (pools, upsamples, strided and
+transposed convs) keep the slab layout where their blocks of rows allow it.
 """
 
 from __future__ import annotations
@@ -48,7 +56,7 @@ import torch.utils.checkpoint
 
 from unet_design_tpu_torch.ops.embeddings import ddpm_time_embedding
 from unet_design_tpu_torch.ops.spectral import SpectralConv2d
-from unet_design_tpu_torch.parallel import mesh
+from unet_design_tpu_torch.parallel import mesh, spatial, tensor
 
 ACTIVATIONS: dict = {
     "relu": F.relu,
@@ -80,6 +88,9 @@ class GroupNorm(nn.GroupNorm):
         super().__init__(num_groups, num_channels, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if spatial.local_field(x, 2) is not None:
+            return _slab_norm(x, self.num_groups, self.weight, self.bias,
+                              self.eps)
         if x.device.type != "cpu":
             return F.group_norm(x.float(), self.num_groups, self.weight,
                                 self.bias, self.eps).to(x.dtype)
@@ -91,6 +102,40 @@ class GroupNorm(nn.GroupNorm):
             h = h.contiguous()
         return F.group_norm(h, self.num_groups, self.weight.double(),
                             self.bias.double(), self.eps).to(x.dtype)
+
+
+def _slab_norm(x: torch.Tensor, groups: int, weight: torch.Tensor,
+               bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """Group normalisation of an NCHW slab with the statistics of the whole
+    field: the mean, then the biased variance about it, each a sum over the
+    slabs (fp32, float64 on the CPU, as :class:`GroupNorm`)."""
+    dt = torch.float64 if x.device.type == "cpu" else torch.float32
+    b, c = x.shape[:2]
+    h = x.to(dt).reshape(b, groups, -1)
+    n = h.shape[-1] * spatial.current().count
+    mean = spatial.slab_sum(h.sum(-1)) / n
+    centred = h - mean[..., None]
+    var = spatial.slab_sum(centred.square().sum(-1)) / n
+    y = (centred * torch.rsqrt(var + eps)[..., None]).reshape(x.shape)
+    y = y * weight.to(dt)[:, None, None] + bias.to(dt)[:, None, None]
+    return y.to(x.dtype)
+
+
+def max_pool2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 max pooling of an NCHW map (floor), on slabs where it can."""
+    return spatial.resample(lambda v: F.max_pool2d(v, 2), x, 2, 2, 1)
+
+
+def avg_pool2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 average pooling of an NCHW map (floor), on slabs where it can."""
+    return spatial.resample(lambda v: F.avg_pool2d(v, 2), x, 2, 2, 1)
+
+
+def nearest_up2(x: torch.Tensor) -> torch.Tensor:
+    """Nearest x2 upsampling of an NCHW map (``F.interpolate``)."""
+    return spatial.resample(
+        lambda v: F.interpolate(v, scale_factor=2, mode="nearest"), x, 2,
+        1, 2)
 
 
 def conv3x3(in_channels: int, out_channels: int,
@@ -145,10 +190,13 @@ class FullResnetConvBlock(nn.Module):
 
 
 def nearest_upsample(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
-    """Nearest-neighbour spatial upsample of an NHWC tensor."""
-    b, h, w, c = x.shape
-    x = x[:, :, None, :, None, :].expand(b, h, factor, w, factor, c)
-    return x.reshape(b, h * factor, w * factor, c)
+    """Nearest-neighbour spatial upsample of an NHWC tensor (a slab stays
+    one)."""
+    def up(v):
+        b, h, w, c = v.shape
+        v = v[:, :, None, :, None, :].expand(b, h, factor, w, factor, c)
+        return v.reshape(b, h * factor, w * factor, c)
+    return spatial.resample(up, x, 1, 1, factor)
 
 
 class ConvTransposeUpsample(nn.Module):
@@ -224,6 +272,9 @@ class AttentionBlock(nn.Module):
         self.dense2 = Linear(n_heads * self.d_k, channels, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return spatial.whole(self._attend, x, 2)
+
+    def _attend(self, x: torch.Tensor) -> torch.Tensor:
         b, c, hh, ww = x.shape
         nh, dk, n = self.n_heads, self.d_k, hh * ww
         seq = x.flatten(2).transpose(1, 2)                       # (b, n, c)
@@ -251,7 +302,13 @@ class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` with fp32 parameters that computes in ``dtype``; its
     fresh init is Xavier-uniform times ``gain`` (:func:`ddpm_init_`), or
     LeCun-normal (:func:`flax_default_init_`), or zero where ``zero_init``
-    (flax's ``zeros_init`` kernels)."""
+    (flax's ``zeros_init`` kernels).
+
+    On a slab (``parallel/spatial.py``) it pads the slab with the rows its
+    window reaches in the neighbouring slabs (zeros past the global edges,
+    which is the zero padding) and convolves without H padding; a stride
+    needs slabs of whole strides.  A layer sharded over ``model``
+    (``parallel/tensor.py``) computes its block of output channels."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, gain: float = 1.0,
@@ -264,15 +321,43 @@ class Conv2d(nn.Conv2d):
         self.compute_dtype = dtype
         self.zero_init = zero_init
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _conv(self, x: torch.Tensor, padding=None) -> torch.Tensor:
         d = self.compute_dtype
-        return self._conv_forward(x.to(d), self.weight.to(d),
-                                  _cast(self.bias, d))
+        pad = self.padding if padding is None else padding
+        block = getattr(self, "tp", None)
+        if block is None:
+            return F.conv2d(x.to(d), self.weight.to(d), _cast(self.bias, d),
+                            self.stride, pad, self.dilation, self.groups)
+        y = tensor.column_parallel(
+            lambda v: F.conv2d(v.to(d), self.weight.to(d), None, self.stride,
+                               pad, self.dilation, self.groups), x, block, 1)
+        return y if self.bias is None else y + self.bias.to(d)[:, None, None]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        f = spatial.current()
+        if f is None:
+            return self._conv(x)
+        (k, _), (s, _), (p, pw), (dl, _) = (self.kernel_size, self.stride,
+                                            self.padding, self.dilation)
+        n = spatial.rows(x, 2)
+        rows_out = (n + 2 * p - dl * (k - 1) - 1) // s + 1
+        if not f.sharded:
+            return spatial.whole(self._conv, x, 2, rows_out)
+        local = x.shape[2]
+        top, bottom = p, max(dl * (k - 1) - p - (s - 1), 0)
+        if local % s or max(top, bottom) > local or rows_out != n // s:
+            return spatial.whole(self._conv, x, 2, rows_out)
+        y = self._conv(spatial.halo(x, top, bottom, 2), (0, pw))
+        y = y[:, :, :local // s]
+        f.rows = rows_out
+        return y if f.sharded else spatial.gather(y, 2)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` with fp32 parameters that computes in
-    ``dtype`` (flax ``ConvTranspose(dtype=...)``)."""
+    ``dtype`` (flax ``ConvTranspose(dtype=...)``).  On a slab it takes the
+    input rows its window reaches in the neighbouring slabs (none for k2
+    s2, one each side for k4 s2 p1) and keeps its slab of the output."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0,
@@ -281,17 +366,43 @@ class ConvTranspose2d(nn.ConvTranspose2d):
                          stride=stride, padding=padding)
         self.compute_dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _tconv(self, x: torch.Tensor, padding=None) -> torch.Tensor:
         d = self.compute_dtype
-        return F.conv_transpose2d(x.to(d), self.weight.to(d),
-                                  _cast(self.bias, d), self.stride,
-                                  self.padding, self.output_padding,
-                                  self.groups, self.dilation)
+        pad = self.padding if padding is None else padding
+        block = getattr(self, "tp", None)
+
+        def run(v, bias):
+            return F.conv_transpose2d(v.to(d), self.weight.to(d), bias,
+                                      self.stride, pad, self.output_padding,
+                                      self.groups, self.dilation)
+        if block is None:
+            return run(x, _cast(self.bias, d))
+        y = tensor.column_parallel(lambda v: run(v, None), x, block, 1)
+        return y if self.bias is None else y + self.bias.to(d)[:, None, None]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        f = spatial.current()
+        if f is None:
+            return self._tconv(x)
+        (k, _), (s, _), (p, pw) = self.kernel_size, self.stride, self.padding
+        n = spatial.rows(x, 2)
+        rows_out = ((n - 1) * s - 2 * p + self.dilation[0] * (k - 1)
+                    + self.output_padding[0] + 1)
+        local = x.shape[2]
+        top, bottom = (k - 1 - p) // s, (s - 1 + p) // s
+        if (not f.sharded or rows_out != n * s or self.dilation[0] != 1
+                or max(top, bottom) > local):
+            return spatial.whole(self._tconv, x, 2, rows_out)
+        y = self._tconv(spatial.halo(x, top, bottom, 2), (0, pw))
+        y = y[:, :, top * s + p:top * s + p + local * s]
+        f.rows = rows_out
+        return y if f.sharded else spatial.gather(y, 2)
 
 
 class Linear(nn.Linear):
     """``nn.Linear`` with fp32 parameters that computes in ``dtype`` (flax
-    ``Dense``); fresh init Xavier-uniform times ``gain``."""
+    ``Dense``); fresh init Xavier-uniform times ``gain``.  A layer sharded
+    over ``model`` computes its block of output features."""
 
     def __init__(self, in_features: int, out_features: int,
                  gain: float = 1.0, dtype: torch.dtype = torch.float32,
@@ -303,7 +414,13 @@ class Linear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.compute_dtype
-        return F.linear(x.to(d), self.weight.to(d), self.bias.to(d))
+        block = getattr(self, "tp", None)
+        if block is None:
+            return F.linear(x.to(d), self.weight.to(d), self.bias.to(d))
+        y = tensor.column_parallel(
+            lambda v: F.linear(v.to(d), self.weight.to(d)), x, block,
+            x.dim() - 1)
+        return y + self.bias.to(d)
 
 
 @torch.no_grad()
@@ -338,7 +455,8 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
         return x
     keep = 1.0 - rate
     mask = mesh.draw_rows(lambda shape: torch.rand(
-        shape, generator=generator, device=x.device), x.shape) < keep
+        shape, generator=generator, device=x.device), x.shape,
+        h_axis=2 if x.dim() == 4 else None) < keep
     return torch.where(mask, x / keep, x.new_zeros(()))
 
 
@@ -352,9 +470,14 @@ def checkpoint(fn: Callable, *args,
     ``generator`` (dropout masks) are replayed here: the recompute starts
     from the generator's state at the first call and leaves it where it
     found it, so the backward differentiates the forward's masks and later
-    draws do not shift."""
+    draws do not shift.  The recompute also runs at the level of the
+    spatial field where the forward ran (``parallel/spatial.py``)."""
+    rows = spatial.state()
     if generator is None:
-        return torch.utils.checkpoint.checkpoint(fn, *args,
+        def replayed(*a):
+            with spatial.at(rows):
+                return fn(*a)
+        return torch.utils.checkpoint.checkpoint(replayed, *args,
                                                  use_reentrant=False)
     start = []
 
@@ -365,7 +488,8 @@ def checkpoint(fn: Callable, *args,
         now = generator.get_state()
         generator.set_state(start[0])
         try:
-            return fn(*a)
+            with spatial.at(rows):
+                return fn(*a)
         finally:
             # also when the recompute stops early, once it has what the
             # backward needs
@@ -405,6 +529,9 @@ class DDPMAttnBlock(nn.Module):
         self.proj_out = Conv2d(channels, channels, 1, gain=1e-5, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return spatial.whole(self._attend, x, 2)
+
+    def _attend(self, x: torch.Tensor) -> torch.Tensor:
         b, c, hh, ww = x.shape
         h = self.norm(x)
         q = self.q(h).flatten(2).transpose(1, 2)        # (b, hw, c)
@@ -464,7 +591,7 @@ class Downsample(nn.Module):
                             dtype=dtype) if method == "conv" else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x) if self.conv is not None else F.avg_pool2d(x, 2)
+        return self.conv(x) if self.conv is not None else avg_pool2(x)
 
 
 class Upsample(nn.Module):
@@ -475,7 +602,7 @@ class Upsample(nn.Module):
         self.conv = Conv2d(channels, channels, 3, padding=1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
+        return self.conv(nearest_up2(x))
 
 
 # ----------------------------------------------------------------------------
@@ -548,6 +675,9 @@ class QKVAttentionBlock(nn.Module):
                                zero_init=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return spatial.whole(self._attend, x, 2)
+
+    def _attend(self, x: torch.Tensor) -> torch.Tensor:
         b, c, hh, ww = x.shape
         nh, dh, n = self.num_heads, c // self.num_heads, hh * ww
         h = self.norm(x).flatten(2).transpose(1, 2)            # (b, n, c)

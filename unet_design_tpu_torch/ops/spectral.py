@@ -45,6 +45,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from unet_design_tpu_torch.parallel import spatial
+
 
 def dft_mats(n: int, modes: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """cos / sin tables of ``exp(-2 pi i n k / N)``, shape ``(N, len(modes))``
@@ -218,7 +220,12 @@ class SpectralConv2d(nn.Module):
     def forward(self, x: torch.Tensor, route: Optional[str] = None
                 ) -> torch.Tensor:
         """``route`` forces ``"dft"`` or ``"fft"`` (for timing and tests);
-        by default the JAX rule picks it."""
+        by default the JAX rule picks it, for the whole grid: a slab of a
+        spatial field is gathered first (``parallel/spatial.py``)."""
+        return spatial.whole(lambda v: self._forward(v, route), x, 2)
+
+    def _forward(self, x: torch.Tensor, route: Optional[str]
+                 ) -> torch.Tensor:
         _, _, h, w = x.shape
         route = route or self.route((h, w))
         xf = x.float()
@@ -265,6 +272,11 @@ class CondSpectralConv2d(SpectralConv2d):
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
                 route: Optional[str] = None) -> torch.Tensor:
+        return spatial.whole(lambda v: self._forward_cond(v, emb, route), x,
+                             2)
+
+    def _forward_cond(self, x: torch.Tensor, emb: torch.Tensor,
+                      route: Optional[str]) -> torch.Tensor:
         b, _, h, w = x.shape
         m1, m2 = self.modes1, self.modes2
         f = (emb.float() @ self.freq_weights + self.freq_bias).view(
@@ -307,6 +319,13 @@ class SpectralConv2dUno(SpectralConv2d):
 
     def forward(self, x: torch.Tensor, out_hw: Tuple[int, int],
                 route: Optional[str] = None) -> torch.Tensor:
+        """On the whole grid; the output (``out_hw``, global) is the
+        field's new level."""
+        return spatial.whole(lambda v: self._forward_uno(v, out_hw, route),
+                             x, 2, out_hw[0])
+
+    def _forward_uno(self, x: torch.Tensor, out_hw: Tuple[int, int],
+                     route: Optional[str]) -> torch.Tensor:
         _, _, h, w = x.shape
         d1, d2 = out_hw
         route = route or self.route((h, w), (d1, d2))

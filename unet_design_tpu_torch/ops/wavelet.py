@@ -11,6 +11,13 @@ the ``pyramid_fn`` hook of :func:`multires_targets` (DDPM noise targets)
 and :func:`multires_targets_traj` (PDE trajectory targets).
 
 All functions take NHWC ``(B, H, W, C)`` tensors, the JAX package's layout.
+
+In a spatial field (``parallel/spatial.py``) an octave runs on this rank's
+slab when the slab has an even number of rows, else on the whole field;
+a pyramid runs on the slab when its rows divide by ``2^(L-1)`` (the CUDA
+kernel then takes each rank's slab), else on the whole field, and each
+level comes out in the layout of its rows, tagged with them
+(``spatial_rows``) for the loss that pairs it with a prediction.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ from typing import Callable, List, Optional
 
 import torch
 import torch.nn.functional as F
+
+from unet_design_tpu_torch.parallel import spatial
 
 
 def _pad_to_even(x: torch.Tensor) -> torch.Tensor:
@@ -32,6 +41,14 @@ def _pad_to_even(x: torch.Tensor) -> torch.Tensor:
 def haar_downsample_once(x: torch.Tensor) -> torch.Tensor:
     """One octave of Haar LL downsampling: the zero-padded 2x2 mean, taken in
     fp32 and cast back.  ``(B, H, W, C) -> (B, ceil(H/2), ceil(W/2), C)``."""
+    f = spatial.current()
+    if f is not None:
+        n = spatial.rows(x, 1)
+        return spatial.resample(_octave, x, 1, 2, 1, rows_out=-(-n // 2))
+    return _octave(x)
+
+
+def _octave(x: torch.Tensor) -> torch.Tensor:
     x = _pad_to_even(x)
     b, h, w, c = x.shape
     x = x.reshape(b, h // 2, 2, w // 2, 2, c)
@@ -82,6 +99,36 @@ def dwt_pyramid(x: torch.Tensor, n_levels: int) -> List[torch.Tensor]:
 PyramidFn = Callable[[torch.Tensor, int], List[torch.Tensor]]
 
 
+def field_pyramid(fn: PyramidFn, x: torch.Tensor, n_levels: int
+                  ) -> List[torch.Tensor]:
+    """``fn(x, n_levels)`` in a spatial field: on this rank's slab when its
+    rows divide by ``2^(n_levels-1)``, else on the whole field; each level
+    in the layout of its global rows and tagged with them.  The current
+    level is left as it was."""
+    f = spatial.current()
+    if f is None:
+        return fn(x, n_levels)
+    rows = [spatial.rows(x, 1)]
+    for _ in range(n_levels - 1):
+        rows.append(-(-rows[-1] // 2))
+    on_slab = f.sharded and x.shape[1] % 2 ** (n_levels - 1) == 0
+    if on_slab:
+        levels = spatial.outside(fn, x, n_levels)
+    else:
+        levels = spatial.outside(fn, spatial.gather(x, 1) if f.sharded
+                                 else x, n_levels)
+    out = []
+    for r, lv in zip(rows, levels):
+        want = spatial.shards(r, f.count)
+        if on_slab and not want:
+            lv = spatial.gather(lv, 1)
+        elif not on_slab and want:
+            lv = spatial.shard(lv, 1)
+        lv.spatial_rows = r
+        out.append(lv)
+    return out
+
+
 def multires_targets(x: torch.Tensor, n_levels: int, n_downsample: int = 0,
                      pyramid_fn: Optional[PyramidFn] = None
                      ) -> List[torch.Tensor]:
@@ -96,7 +143,7 @@ def multires_targets(x: torch.Tensor, n_levels: int, n_downsample: int = 0,
     ks = [k for k in ks if k >= 0]
     if not ks:
         return []
-    pyr = (pyramid_fn or dwt_pyramid)(x, max(ks) + 1)
+    pyr = field_pyramid(pyramid_fn or dwt_pyramid, x, max(ks) + 1)
     return [pyr[k] for k in ks]
 
 
@@ -122,10 +169,16 @@ def multires_targets_traj(y: torch.Tensor, n_levels: int, n_downsample: int,
     :func:`dwt_pyramid`; the trainer passes ``ops.haar.haar_pyramid``, whose
     CUDA kernel needs a contiguous input).
     """
-    base = haar_downsample_traj(y, n_downsample)
-    n = n_levels - n_downsample
-    b, t = base.shape[:2]
-    frames = base.reshape(b * t, *base.shape[2:]).contiguous()
-    pyr = (pyramid_fn or dwt_pyramid)(frames, n)
-    pyr = [p.reshape(b, t, *p.shape[1:]) for p in pyr]
-    return pyr[::-1]
+    with spatial.at(spatial.state()):
+        base = haar_downsample_traj(y, n_downsample)
+        n = n_levels - n_downsample
+        b, t = base.shape[:2]
+        frames = base.reshape(b * t, *base.shape[2:]).contiguous()
+        pyr = field_pyramid(pyramid_fn or dwt_pyramid, frames, n)
+    out = []
+    for p in pyr:
+        q = p.reshape(b, t, *p.shape[1:])
+        if hasattr(p, "spatial_rows"):
+            q.spatial_rows = p.spatial_rows
+        out.append(q)
+    return out[::-1]

@@ -153,7 +153,8 @@ def _step_noise(noises: Optional[Sequence[torch.Tensor]], i: int,
     if noises is not None:
         return noises[i]
     return mesh.draw_rows(lambda shape: torch.randn(
-        shape, generator=generator, device=x.device, dtype=x.dtype), x.shape)
+        shape, generator=generator, device=x.device, dtype=x.dtype), x.shape,
+        h_axis=1)
 
 
 @torch.no_grad()
@@ -410,7 +411,10 @@ class VPDiffusion:
             return ((model_output - noise) ** 2).mean(), []
         k = len(model_output)
         if self.weighted_multi_res_loss:
-            w = np.array([1.0 / (out.shape[1] ** 2) for out in model_output])
+            # the global rows of each level (a slab's are a part)
+            w = np.array([1.0 / (getattr(n, "spatial_rows", out.shape[1])
+                                 ** 2)
+                          for out, n in zip(model_output, noise)])
             weights = (w / w.sum()).tolist()
         else:
             weights = [1.0] * k

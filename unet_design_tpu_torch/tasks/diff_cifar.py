@@ -43,7 +43,11 @@ carry ``untrusted_random_inception_weights``.
 With ``parallel.data=N`` (``parallel/mesh.py``) each of N ranks takes its
 rows of every global batch, its rows of the global draws and flips, and
 the gradients are averaged over the ranks; the evaluation samples its rows
-of each sampling batch and rank 0 scores the gathered images.
+of each sampling batch and rank 0 scores the gathered images.  With
+``parallel.model`` the widest layers, their Adam moments and their EMA
+hold a block of output channels (``parallel/tensor.py``), and the
+evaluation samples with them.  ``parallel.spatial`` is refused as JAX
+refuses it: a 32-pixel image leaves fewer than 32 rows a slab.
 
 Run: ``python -m unet_design_tpu_torch.tasks.diff_cifar --config <yaml>
 [k=v ...]``.
@@ -66,7 +70,7 @@ from unet_design_tpu_torch.evalx.fid import FIDEvaluator
 from unet_design_tpu_torch.evalx.inception import load_fid_params
 from unet_design_tpu_torch.models.multires_unet import MultiResUNet
 from unet_design_tpu_torch.ops import blocks, haar
-from unet_design_tpu_torch.parallel import mesh
+from unet_design_tpu_torch.parallel import mesh, tensor
 from unet_design_tpu_torch.parallel.mesh import ParallelConfig
 from unet_design_tpu_torch.process import diffusion
 from unet_design_tpu_torch.train import freezing, schedules, trainer
@@ -81,6 +85,9 @@ log = get_logger(__name__)
 
 # module-level so tests monkeypatch it per task (see trainer.STOP_FILES)
 STOP_FILES = trainer.STOP_FILES
+
+#: the rows of CIFAR-10 and of its synthetic stand-in
+RESOLUTION = 32
 
 
 @dataclasses.dataclass
@@ -224,6 +231,17 @@ def check_config(cfg: Config) -> None:
         visualization.require_matplotlib("train.sample_step")
 
 
+def check_parallel(cfg: Config) -> int:
+    """The ranks ``cfg.parallel`` asks for, after the refusals of JAX's
+    ``diff_cifar.py:222-224``: ``parallel.spatial`` > 1 leaves fewer than
+    32 rows a slab of a 32-pixel image."""
+    mesh.check_layout(
+        cfg.parallel, cfg.data.batch_size,
+        RESOLUTION >> (len(cfg.train.num_iterations_list) - 1), RESOLUTION,
+        guarded=False)
+    return mesh.world_size(cfg.parallel)
+
+
 def draw_t_noise(generator: torch.Generator, x0: torch.Tensor, T: int,
                  step: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Global step ``step``'s timesteps ``(B,)`` and noise (``x0``'s shape)
@@ -234,7 +252,7 @@ def draw_t_noise(generator: torch.Generator, x0: torch.Tensor, T: int,
         0, T, shape, generator=generator, device=x0.device), (x0.shape[0],))
     noise = mesh.draw_rows(lambda shape: torch.randn(
         shape, generator=generator, device=x0.device, dtype=x0.dtype),
-        x0.shape)
+        x0.shape, h_axis=1)
     return t, noise
 
 
@@ -259,6 +277,7 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
     mesh.check_axes(cfg.parallel)   # before a train_id's run is looked up
     cfg = config_lib.restore_run_config(cfg)
     check_config(cfg)
+    check_parallel(cfg)
     if mesh.needs_launch(cfg.parallel):
         return trainer.launch(train, cfg, params, lambda: build_model(cfg))
     device = resolve_device(cfg.device)
@@ -278,6 +297,7 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
     if params is not None:
         model.load_state_dict(params, strict=True)
     model.to(device)
+    tensor.shard_model_(model, group, cfg.parallel.tp_min_channels)
     named = dict(model.named_parameters())
     ema = {n: p.detach().clone() for n, p in named.items()}
 
@@ -321,7 +341,7 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
 
     def on_step(stage, x0, step):
         if (tc.sample_step and step % tc.sample_step == 0
-                and mesh.is_main(group)):
+                and mesh.beside_main(group)):
             _log_sample_grids(cfg, model, ema, sch, metrics, device, step,
                               stage.res, stage.spec.n_levels_used,
                               data.shape[-1])
@@ -392,16 +412,17 @@ def evaluate(cfg: Config, model: MultiResUNet,
     when ``train.fid_weights`` names no ``.pth``.
 
     With a data-parallel ``group`` every rank draws each batch's ``x_T``,
-    pads it to a multiple of the ranks (the padding trimmed after), samples
-    its rows with global draws, and gathers the images; rank 0 scores them
-    and the other ranks return ``{}`` (JAX ``diff_cifar.py:501-530``)."""
+    pads it to a multiple of the data ranks (the padding trimmed after),
+    samples its rows with global draws, and gathers the images; rank 0
+    scores them and the other ranks return ``{}`` (JAX
+    ``diff_cifar.py:501-530``).  ``ema`` holds the blocks of the
+    model-sharded parameters, which the model ranks sample with."""
     tc = cfg.train
     device = next(iter(ema.values())).device
     num_images = num_images or tc.num_eval_images
     sampler = make_sampler(cfg, model, sch, n_levels_used, ema)
     if group is not None:
-        batch_size = max(batch_size // group.world * group.world,
-                         group.world)
+        batch_size = max(batch_size // group.data * group.data, group.data)
     images = []
     for s in range(0, num_images, batch_size):
         b = min(batch_size, num_images - s)
@@ -409,7 +430,7 @@ def evaluate(cfg: Config, model: MultiResUNet,
         if group is None:
             x0 = sampler(x_T, generator=generator)
         else:
-            pad = (-b) % group.world
+            pad = (-b) % group.data
             x_T = torch.cat([x_T, x_T[:pad]])
             with mesh.sharded_batch(group):
                 x0 = sampler(x_T[group.rows(b + pad)], generator=generator)

@@ -32,7 +32,12 @@ nothing (``:456-481``).
 
 With ``parallel.data=N`` (``parallel/mesh.py``) each of N ranks takes its
 rows of every global batch and of the global draws, the gradients are
-averaged over the ranks, and rank 0 alone draws the figures.
+averaged over the ranks, and rank 0 alone draws the figures (with rank
+0's model ranks, on the whole field).  ``parallel.model`` shards the
+widest layers' output channels (``parallel/tensor.py``);
+``parallel.spatial`` trains each rank on its slab of rows
+(``parallel/spatial.py``) where the smallest stage leaves 32 rows a slab,
+JAX's floor for a model without guard sites.
 
 Run: ``python -m unet_design_tpu_torch.tasks.diff_mnist --config <yaml>
 [k=v ...]``.
@@ -55,7 +60,7 @@ from unet_design_tpu_torch.models.openai_unet import (ScoreNetwork,
                                                       UNetModel,
                                                       WaveletUNetOpenAI)
 from unet_design_tpu_torch.ops import blocks, haar, wavelet
-from unet_design_tpu_torch.parallel import mesh
+from unet_design_tpu_torch.parallel import mesh, tensor
 from unet_design_tpu_torch.parallel.mesh import ParallelConfig
 from unet_design_tpu_torch.process.diffusion import VPDiffusion
 from unet_design_tpu_torch.tasks.pde import resolve_device
@@ -261,6 +266,16 @@ def check_config(cfg: Config) -> None:
         visualization.require_matplotlib("train.do_superres")
 
 
+def check_parallel(cfg: Config) -> int:
+    """The ranks ``cfg.parallel`` asks for, after the refusals of JAX's
+    ``diff_mnist.py:200-210`` (32 rows a slab at the smallest stage)."""
+    mesh.check_layout(
+        cfg.parallel, cfg.data.batch_size,
+        cfg.data.resolution >> (len(cfg.train.num_iterations_list) - 1),
+        cfg.data.resolution, guarded=False)
+    return mesh.world_size(cfg.parallel)
+
+
 def draw_t_noise(generator: torch.Generator, x0: torch.Tensor,
                  t_range: Tuple[int, int], step: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -274,7 +289,7 @@ def draw_t_noise(generator: torch.Generator, x0: torch.Tensor,
         (x0.shape[0],))
     noise = mesh.draw_rows(lambda shape: torch.randn(
         shape, generator=generator, device=x0.device, dtype=x0.dtype),
-        x0.shape)
+        x0.shape, h_axis=1)
     return t, noise
 
 
@@ -380,6 +395,7 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
     cfg = config_lib.restore_run_config(cfg)
     check_config(cfg)
     mesh.check_axes(cfg.parallel)   # what a restored run's config asks for
+    check_parallel(cfg)
     if mesh.needs_launch(cfg.parallel):
         return trainer.launch(train, cfg, params, lambda: build_model(
             cfg, dataset_channels(cfg.data)))
@@ -389,6 +405,7 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
                                "data.batch_size")
     device = group.device if group else device
     main_rank = mesh.is_main(group)
+    beside_main = mesh.beside_main(group)
     tc = cfg.train
     data = load_dataset(cfg.data)
     in_ch = data.shape[-1]
@@ -400,6 +417,7 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
     if params is not None:
         model.load_state_dict(params, strict=True)
     model.to(device)
+    tensor.shard_model_(model, group, cfg.parallel.tp_min_channels)
     named = dict(model.named_parameters())
 
     metrics = MetricsLogger(tc.logdir, main_rank)
@@ -441,7 +459,7 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
                        cfg.diffusion.last_loss_schedule_weight)
 
     def on_step(stage, x0, step):
-        if not main_rank:
+        if not beside_main:
             return
         n, cur_res = stage.spec.n_levels_used, stage.res
         if tc.samples_every_iters and step % tc.samples_every_iters == 0:
@@ -467,7 +485,8 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
         lr_at=lambda k: tc.lr, stop_files=STOP_FILES, on_step=on_step,
         group=group)
 
-    if tc.do_superres and is_wavelet and sequ and not stopped and main_rank:
+    if (tc.do_superres and is_wavelet and sequ and not stopped
+            and beside_main):
         runs, needed, have = _superres_levels(cfg)
         if runs:
             final = stages[-1]

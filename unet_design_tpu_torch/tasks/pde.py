@@ -30,7 +30,13 @@ With ``parallel.data=N`` (``parallel/mesh.py``; JAX ``pde.py:249-262,
 of each global batch; the gradients are averaged over the ranks (BatchNorm
 takes the global batch's statistics), the logged loss is the mean over
 them, every rank validates the whole valid split (so every rank agrees on
-the best checkpoint) and rank 0 writes.  Across hosts
+the best checkpoint) and rank 0 writes.  With ``parallel.model`` the
+widest layers hold a block of their output channels
+(``parallel/tensor.py``); with ``parallel.spatial`` each rank stages and
+streams only its slab of rows of every field (JAX's ``place_dataset(...,
+h_axis=2)``), and trains and validates on it (``parallel/spatial.py``).
+Layouts JAX refuses are refused before the ranks start
+(:func:`supports_spatial_guard`, ``mesh.check_layout``).  Across hosts
 (``parallel.num_processes``) each host opens its stride of the files and
 draws batches of ``batch_size / num_processes`` from them, which its ranks
 split, and the validation metrics are averaged over the hosts.
@@ -54,7 +60,9 @@ from unet_design_tpu_torch.data import pde as pde_data
 from unet_design_tpu_torch.evalx import metrics as eval_metrics
 from unet_design_tpu_torch.models import registry
 from unet_design_tpu_torch.ops import blocks, haar, wavelet
-from unet_design_tpu_torch.parallel import mesh
+from unet_design_tpu_torch.models.modern_unet import ModernUnet
+from unet_design_tpu_torch.models.unetbase import Unetbase, UnetbaseG
+from unet_design_tpu_torch.parallel import mesh, spatial, tensor
 from unet_design_tpu_torch.parallel.mesh import ParallelConfig
 from unet_design_tpu_torch.process import losses as losses_lib
 from unet_design_tpu_torch.process import rollout as rollout_lib
@@ -166,6 +174,26 @@ def pde_config(cfg: DataConfig) -> pde_data.PDEDataConfig:
                                   cfg.n_vector_components, cfg.trajlen, 2)
 
 
+def supports_spatial_guard(name: str) -> bool:
+    """Whether the registry model has JAX's per-level guard sites
+    (``pde.py:165-171``: a ``spatial_guard`` field), which lift the
+    32-rows-a-slab floor of grid partitioning."""
+    spec = registry.MODEL_REGISTRY.get(name)
+    return spec is not None and spec["cls"] in (Unetbase, UnetbaseG,
+                                                ModernUnet)
+
+
+def check_parallel(cfg: Config) -> int:
+    """The ranks ``cfg.parallel`` asks for, after the refusals of JAX's
+    ``pde.py:249-262`` (the smallest stage's rows a slab, unless the model
+    has guard sites)."""
+    mesh.check_layout(
+        cfg.parallel, cfg.data.batch_size,
+        cfg.data.resolution >> (len(cfg.train.num_epochs_list) - 1),
+        cfg.data.resolution, supports_spatial_guard(cfg.model.name))
+    return mesh.world_size(cfg.parallel)
+
+
 def build_model(cfg: Config) -> nn.Module:
     """The registry model in the config's compute dtype (bf16 under
     ``model.use_bf16``, parameters fp32), with ``remat`` for
@@ -229,13 +257,15 @@ def open_splits(cfg: DataConfig, host: int = 0, n_hosts: int = 1):
 
 
 def stage_splits(cfg: DataConfig, train_opener, valid_opener,
-                 device: torch.device
+                 device: torch.device, group: Optional[mesh.Group] = None
                  ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """JAX's staging policy (``pde.py:301-322``): with ``device_cache`` and
     an opener that can stack its split (``cache_in_memory``), the training
     set goes to ``device`` if it fits ``device_cache_max_bytes``, and the
     validation set too if both fit together.  Returns the staged
-    ``(N, T, H, W, C)`` tensors, None for a split that streams."""
+    ``(N, T, H, W, C)`` tensors, None for a split that streams.  With a
+    spatial axis in ``group`` a rank stages its slab of rows of every
+    field (JAX's ``place_dataset(..., h_axis=2)``)."""
     if not (cfg.device_cache and hasattr(train_opener, "stacked_fields")):
         log.info("Train and valid sets stream from the host")
         return None, None
@@ -244,18 +274,21 @@ def stage_splits(cfg: DataConfig, train_opener, valid_opener,
         log.warning("device_cache disabled: %.2f GB > max %.2f GB",
                     stacked.nbytes / 1e9, cfg.device_cache_max_bytes / 1e9)
         return None, None
-    fields = torch.from_numpy(stacked).to(device)
-    log.info("Train set on %s: %s (%.2f GB)", device, tuple(stacked.shape),
-             stacked.nbytes / 1e9)
+    fields = torch.from_numpy(
+        np.ascontiguousarray(spatial.take_slab(stacked, group, 2))).to(device)
+    log.info("Train set on %s: %s (%.2f GB)", device, tuple(fields.shape),
+             fields.numel() * fields.element_size() / 1e9)
     vstacked = valid_opener.stacked_fields()
     if stacked.nbytes + vstacked.nbytes > cfg.device_cache_max_bytes:
         log.info("Valid set streams from the host: train + valid %.2f GB "
                  "> max %.2f GB", (stacked.nbytes + vstacked.nbytes) / 1e9,
                  cfg.device_cache_max_bytes / 1e9)
         return fields, None
-    log.info("Valid set on %s: %s (%.2f GB)", device, tuple(vstacked.shape),
-             vstacked.nbytes / 1e9)
-    return fields, torch.from_numpy(vstacked).to(device)
+    valid = torch.from_numpy(
+        np.ascontiguousarray(spatial.take_slab(vstacked, group, 2))).to(device)
+    log.info("Valid set on %s: %s (%.2f GB)", device, tuple(valid.shape),
+             valid.numel() * valid.element_size() / 1e9)
+    return fields, valid
 
 
 def stack_cache_dir(cfg: DataConfig) -> Optional[str]:
@@ -300,6 +333,7 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
     With ``parallel.data`` > 1 this starts (or joins) the ranks and returns
     rank 0's state.
     """
+    check_parallel(cfg)
     if mesh.needs_launch(cfg.parallel):
         return trainer.launch(train, cfg, params, lambda: build_model(cfg))
     device = resolve_device(cfg.device)
@@ -330,6 +364,8 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
     if params is not None:
         model.load_state_dict(params, strict=True)
     model.to(device)
+    tensor.shard_model_(model, group, cfg.parallel.tp_min_channels)
+    res = cfg.data.resolution
 
     metrics_logger = MetricsLogger(cfg.train.logdir, mesh.is_main(group))
     ckpt = CheckpointManager(os.path.join(cfg.train.logdir, "ckpt"),
@@ -349,7 +385,7 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
         raise ValueError("every host must hold as many training "
                          "trajectories as the others (equal steps)")
     fields_dev, valid_fields_dev = stage_splits(cfg.data, train_opener,
-                                                valid_opener, device)
+                                                valid_opener, device, group)
     if fields_dev is None and cfg.train.shuffle_trajectory_order:
         log.warning("train.shuffle_trajectory_order is ignored: the train "
                     "set streams from the host, in the opener's order, as "
@@ -427,25 +463,30 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
                      stage, epoch, n_levels_used, n_downsample)
 
         def loss_fn(x, y, n=n_levels_used, nd=n_downsample):
+            # x, y: this rank's part at the full resolution; the targets
+            # are taken there (spatial.at), the model runs at the stage's
+            full = spatial.state()
             if sequ and nd > 0:
                 x = wavelet.haar_downsample_traj(x, nd)
             pred = model(x, n_levels_used=n) if g_model else model(x)
             if cfg.model.multi_res_loss and g_model:
-                ys = wavelet.multires_targets_traj(
-                    y, n_levels, nd,
-                    pyramid_fn=(haar.haar_pyramid
-                                if cfg.train.use_pallas_haar else None))
+                with spatial.at(full):
+                    ys = wavelet.multires_targets_traj(
+                        y, n_levels, nd,
+                        pyramid_fn=(haar.haar_pyramid
+                                    if cfg.train.use_pallas_haar else None))
                 return losses_lib.multires_sum(criterion, pred,
                                                ys[-len(pred):])
             if sequ and nd > 0:
-                y = wavelet.haar_downsample_traj(y, nd)
+                with spatial.at(full):
+                    y = wavelet.haar_downsample_traj(y, nd)
             return criterion(pred, y)
 
         def train_step(x, y):
             nonlocal opt_count
             if schedule is not None:
                 opt.param_groups[0]["lr"] = schedule(opt_count)
-            with mesh.sharded_batch(group):
+            with mesh.sharded_batch(group), spatial.field(group, res):
                 loss = loss_fn(x, y)
                 opt.zero_grad(set_to_none=True)
                 loss.backward()
@@ -455,7 +496,8 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
             if group is not None:
-                group.all_reduce_grads_([p.grad for p in train_params])
+                group.all_reduce_grads_([p.grad for p in train_params],
+                                        tensor.sharded_mask(train_params))
             opt.step()
             opt_count += 1
             return loss.detach()
@@ -487,7 +529,8 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
                 cycles=cycles)
             for batch in pde_data.batched_windows(windows, bs):
                 losses.append(train_step(*loader_lib.to_device(
-                    [a[rows] for a in batch], device)))
+                    [spatial.take_slab(a[rows], group, 2) for a in batch],
+                    device)))
         n_steps = len(losses)
         if losses:
             losses = torch.stack(losses)
@@ -509,12 +552,13 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
         # ---- validation (one-step + rollout)
         if (epoch + 1) % cfg.train.val_every_epochs == 0:
             nd = n_downsample if sequ else 0
-            if valid_fields_dev is not None:
-                val = validate_device(cfg, model, pde, n_levels_used, nd,
-                                      valid_fields_dev)
-            else:
-                val = validate(cfg, model, pde, n_levels_used, nd,
-                               valid_opener, device)
+            with spatial.field(group, res):
+                if valid_fields_dev is not None:
+                    val = validate_device(cfg, model, pde, n_levels_used, nd,
+                                          valid_fields_dev)
+                else:
+                    val = validate(cfg, model, pde, n_levels_used, nd,
+                                   valid_opener, device, group)
             if host_split:   # each host validated its own files
                 val = group.mean_scalars(val)
             metrics_logger.log(val, step)
@@ -578,12 +622,11 @@ def validate_device(cfg: Config, model: nn.Module, pde, n_levels_used,
         outs = {"mse": [], "scaledl2": []}
         for b in range(n_b):
             x, y = _gather_windows(fields_dev, idxs[b], sts[b], th, tf, tg)
-            if nd > 0:
-                x = wavelet.haar_downsample_traj(x, nd)
-                y = wavelet.haar_downsample_traj(y, nd)
-            pred = apply_model(x)
-            outs["mse"].append(losses_lib.custom_mse_loss(pred, y))
-            outs["scaledl2"].append(losses_lib.scaledlp_loss(pred, y))
+            with spatial.at(spatial.state()):   # back at full rows after
+                x, y = _downsample(nd, x, y)
+                pred = apply_model(x)
+                outs["mse"].append(losses_lib.custom_mse_loss(pred, y))
+                outs["scaledl2"].append(losses_lib.scaledlp_loss(pred, y))
         result = {f"valid/loss/{k}": float(torch.stack(v).mean())
                   for k, v in outs.items()}
 
@@ -594,20 +637,21 @@ def validate_device(cfg: Config, model: nn.Module, pde, n_levels_used,
     if len(starts_r):
         for lo in range(0, n_traj, bs):
             f = fields_dev[lo:lo + bs]
-            if nd > 0:
-                f = wavelet.haar_downsample_traj(f, nd)
-            u = f[..., :n_sc]
-            v = f[..., n_sc:] if f.shape[-1] > n_sc else None
-            ls = []
-            for start in starts_r:
-                pred = rollout_lib.rollout2d(
-                    apply_model, u[:, start:start + th],
-                    v[:, start:start + th] if v is not None else None, th,
-                    cfg.data.max_num_steps)
-                t0 = start + th + tg
-                t1 = t0 + tf * cfg.data.max_num_steps
-                ls.append(eval_metrics.rollout_mse_per_sample_step(
-                    pred, f[:, t0:t1]))
+            with spatial.at(spatial.state()):   # back at full rows after
+                if nd > 0:
+                    f = wavelet.haar_downsample_traj(f, nd)
+                u = f[..., :n_sc]
+                v = f[..., n_sc:] if f.shape[-1] > n_sc else None
+                ls = []
+                for start in starts_r:
+                    pred = rollout_lib.rollout2d(
+                        apply_model, u[:, start:start + th],
+                        v[:, start:start + th] if v is not None else None,
+                        th, cfg.data.max_num_steps)
+                    t0 = start + th + tg
+                    t1 = t0 + tf * cfg.data.max_num_steps
+                    ls.append(eval_metrics.rollout_mse_per_sample_step(
+                        pred, f[:, t0:t1]))
             per_sample = torch.stack(ls).mean(dim=0).sum(dim=-1)
             unrolled.extend(per_sample.cpu().numpy().tolist())
     if unrolled:
@@ -616,6 +660,17 @@ def validate_device(cfg: Config, model: nn.Module, pde, n_levels_used,
         result["valid/unrolled_loss_std"] = std
     model.train(was_training)
     return result
+
+
+def _downsample(nd: int, *xs: Optional[torch.Tensor]):
+    """Trajectories ``xs`` (of the current level; None stays None)
+    downsampled ``nd`` octaves each; the current level becomes theirs."""
+    if nd == 0:
+        return xs
+    with spatial.at(spatial.state()):   # all but the first
+        rest = [None if x is None else wavelet.haar_downsample_traj(x, nd)
+                for x in xs[1:]]
+    return (wavelet.haar_downsample_traj(xs[0], nd), *rest)
 
 
 def _eval_model_fn(cfg: Config, model: nn.Module, n_levels_used):
@@ -633,13 +688,14 @@ def _eval_model_fn(cfg: Config, model: nn.Module, n_levels_used):
 
 @torch.no_grad()
 def validate(cfg: Config, model: nn.Module, pde, n_levels_used,
-             n_downsample: int, opener, device: torch.device
-             ) -> Dict[str, float]:
+             n_downsample: int, opener, device: torch.device,
+             group: Optional[mesh.Group] = None) -> Dict[str, float]:
     """One-step and rollout validation of a split streamed from the host
     (JAX ``validate``, ``pde.py:664-732``): the one-step windows in
     batches, start-major, the tail dropped; then the rollouts, batched over
     whole trajectories with the last partial batch kept.  The statistics
-    are :func:`validate_device`'s."""
+    are :func:`validate_device`'s.  With a spatial axis in ``group`` (and
+    inside its field) a rank takes its slab of each field."""
     th, tf, tg = (cfg.data.time_history, cfg.data.time_future,
                   cfg.data.time_gap)
     bs = cfg.data.batch_size
@@ -652,14 +708,14 @@ def validate(cfg: Config, model: nn.Module, pde, n_levels_used,
     count = 0
     for batch in pde_data.batched_windows(
             pde_data.eval_timestep_windows(opener, pde, th, tf, tg), bs):
-        x, y = loader_lib.to_device(batch, device)
-        if nd > 0:
-            x = wavelet.haar_downsample_traj(x, nd)
-            y = wavelet.haar_downsample_traj(y, nd)
-        pred = apply_model(x)
-        for k, fn in (("mse", losses_lib.custom_mse_loss),
-                      ("scaledl2", losses_lib.scaledlp_loss)):
-            one_step[k] = one_step.get(k, 0.0) + float(fn(pred, y))
+        x, y = loader_lib.to_device(
+            [spatial.take_slab(a, group, 2) for a in batch], device)
+        with spatial.at(spatial.state()):   # back at full rows after
+            x, y = _downsample(nd, x, y)
+            pred = apply_model(x)
+            for k, fn in (("mse", losses_lib.custom_mse_loss),
+                          ("scaledl2", losses_lib.scaledlp_loss)):
+                one_step[k] = one_step.get(k, 0.0) + float(fn(pred, y))
         count += 1
     result = {f"valid/loss/{k}": v / max(count, 1)
               for k, v in one_step.items()}
@@ -669,22 +725,21 @@ def validate(cfg: Config, model: nn.Module, pde, n_levels_used,
 
     def rollout_batch(us, vs):
         host = [np.stack(us)] + ([np.stack(vs)] if vs[0] is not None else [])
-        u, *rest = loader_lib.to_device(host, device)
-        v = rest[0] if rest else None
-        if nd > 0:
-            u = wavelet.haar_downsample_traj(u, nd)
-            v = wavelet.haar_downsample_traj(v, nd) if v is not None else None
-        f = torch.cat([u, v], dim=-1) if v is not None else u
+        u, *rest = loader_lib.to_device(
+            [spatial.take_slab(a, group, 2) for a in host], device)
         ls = []
-        for start in starts_r:
-            pred = rollout_lib.rollout2d(
-                apply_model, u[:, start:start + th],
-                v[:, start:start + th] if v is not None else None, th,
-                cfg.data.max_num_steps)
-            t0 = start + th + tg
-            t1 = t0 + tf * cfg.data.max_num_steps
-            ls.append(eval_metrics.rollout_mse_per_sample_step(
-                pred, f[:, t0:t1]))
+        with spatial.at(spatial.state()):   # back at full rows after
+            u, v = _downsample(nd, u, rest[0] if rest else None)
+            f = torch.cat([u, v], dim=-1) if v is not None else u
+            for start in starts_r:
+                pred = rollout_lib.rollout2d(
+                    apply_model, u[:, start:start + th],
+                    v[:, start:start + th] if v is not None else None, th,
+                    cfg.data.max_num_steps)
+                t0 = start + th + tg
+                t1 = t0 + tf * cfg.data.max_num_steps
+                ls.append(eval_metrics.rollout_mse_per_sample_step(
+                    pred, f[:, t0:t1]))
         if not ls:
             return []
         return torch.stack(ls).mean(dim=0).sum(dim=-1).cpu().tolist()

@@ -35,6 +35,11 @@ its rows; the Dice sums run over the global batch and the gradients are
 averaged over the ranks.  A tail batch that does not split evenly is
 computed whole on every rank, as JAX replicates it.  Every rank validates
 and tests on the whole splits, so the early stop agrees; rank 0 writes.
+With ``parallel.model`` the widest layers hold a block of their output
+channels (``parallel/tensor.py``); with ``parallel.spatial`` each rank
+trains on its slab of rows (``parallel/spatial.py``; the model has JAX's
+guard sites, so any resolution that splits is taken), the stage's Haar
+kernel running on the slab where its rows allow it.
 
 Run: ``python -m unet_design_tpu_torch.tasks.wmh --config configs/wmh.yaml
 [k=v ...]`` (``device=cpu`` for the CPU).
@@ -57,7 +62,7 @@ from unet_design_tpu_torch.data import wmh as wmh_data
 from unet_design_tpu_torch.evalx import wmh_metrics
 from unet_design_tpu_torch.models.unetbase import WMHSegUnet
 from unet_design_tpu_torch.ops import blocks, haar, wavelet
-from unet_design_tpu_torch.parallel import mesh
+from unet_design_tpu_torch.parallel import mesh, spatial, tensor
 from unet_design_tpu_torch.parallel.mesh import ParallelConfig
 from unet_design_tpu_torch.process import losses as losses_lib
 from unet_design_tpu_torch.tasks.pde import find_cur_stage, resolve_device
@@ -178,25 +183,40 @@ def stage_downsampler(hw: Tuple[int, int], n_downsample: int
         return "none", None
     f = 1 << n_downsample
     if hw[0] % f == 0 and hw[1] % f == 0:
-        return "kernel", lambda x: haar.haar_pyramid(
-            x.contiguous(), n_downsample + 1)[-1]
+        return "kernel", lambda x: _pyramid_last(x, n_downsample)
     return "plain", lambda x: wavelet.haar_downsample(x, n_downsample)
+
+
+def _pyramid_last(x: torch.Tensor, n_downsample: int) -> torch.Tensor:
+    """The kernel route: the last level of the Haar pyramid (on this
+    rank's slab of a spatial field where its rows allow it), which becomes
+    the field's current level."""
+    out = wavelet.field_pyramid(haar.haar_pyramid, x.contiguous(),
+                                n_downsample + 1)[-1]
+    spatial.set_rows(getattr(out, "spatial_rows", None))
+    return out
 
 
 def _downsample_pair(down: Downsample, x: torch.Tensor, y: torch.Tensor):
     """Image and mask at the stage's resolution, the mask re-binarized
-    (``wmh/train_pt.py:546-562``)."""
+    (``wmh/train_pt.py:546-562``); the stage's level becomes the
+    current one."""
     if down is None:
         return x, y
-    return down(x), (down(y) > 0.5).to(x.dtype)
+    with spatial.at(spatial.state()):
+        y = (down(y) > 0.5).to(x.dtype)
+    return down(x), y
 
 
 def _mask_chain(y: torch.Tensor, n: int) -> List[torch.Tensor]:
     """The multi-res loss's masks, coarsest first: each octave of the one
-    before, re-binarized after every octave (so not a Haar pyramid)."""
-    ys = [y]
-    for _ in range(n - 1):
-        ys.append((wavelet.haar_downsample_once(ys[-1]) > 0.5).to(y.dtype))
+    before, re-binarized after every octave (so not a Haar pyramid); each
+    tagged with its rows in a spatial field."""
+    ys = [spatial.tag(y)]
+    with spatial.at(spatial.state()):
+        for _ in range(n - 1):
+            ys.append(spatial.tag((wavelet.haar_downsample_once(ys[-1])
+                                   > 0.5).to(y.dtype)))
     return ys[::-1]
 
 
@@ -234,6 +254,17 @@ def make_loss_fn(cfg: Config, model: nn.Module, n: int, down: Downsample):
     return loss_fn
 
 
+def check_parallel(cfg: Config) -> int:
+    """The ranks ``cfg.parallel`` asks for, after the refusals of JAX's
+    ``wmh.py:108-120``: ``WMHSegUnet`` has guard sites, so no rows-a-slab
+    floor; the rows must split."""
+    mesh.check_layout(
+        cfg.parallel, cfg.data.batch_size,
+        cfg.data.resolution >> (len(cfg.train.num_epochs_list) - 1),
+        cfg.data.resolution, guarded=True)
+    return mesh.world_size(cfg.parallel)
+
+
 def train_step(opt: torch.optim.Optimizer, train_params: List[nn.Parameter],
                loss_fn, x: torch.Tensor, y: torch.Tensor,
                group: Optional[mesh.Group] = None,
@@ -241,9 +272,12 @@ def train_step(opt: torch.optim.Optimizer, train_params: List[nn.Parameter],
     """One Adam step on the stage's trainable parameters; returns the loss
     (not read back).  With ``group`` the gradients are averaged over its
     ranks; ``sharded``: ``x`` and ``y`` are this rank's rows of the batch
-    (else every rank computes the whole batch)."""
-    with mesh.sharded_batch(group if sharded else None):
-        loss = loss_fn(x, y)
+    (else every rank computes the whole batch).  A spatial axis takes
+    this rank's slab of the rows of ``x`` and ``y`` (whole images)."""
+    rows = x.shape[1]
+    with mesh.sharded_batch(group if sharded else None), \
+            spatial.field(group, rows):
+        loss = loss_fn(spatial.slab(x, 1), spatial.slab(y, 1))
         opt.zero_grad(set_to_none=True)
         loss.backward()
     for p in train_params:
@@ -252,7 +286,8 @@ def train_step(opt: torch.optim.Optimizer, train_params: List[nn.Parameter],
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     if group is not None:
-        group.all_reduce_grads_([p.grad for p in train_params])
+        group.all_reduce_grads_([p.grad for p in train_params],
+                                tensor.sharded_mask(train_params))
     opt.step()
     return loss
 
@@ -271,6 +306,7 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
     With ``parallel.data`` > 1 this starts (or joins) the ranks and returns
     rank 0's result.
     """
+    check_parallel(cfg)
     if mesh.needs_launch(cfg.parallel):
         return mesh.launch(train, cfg, params, parallel=cfg.parallel,
                            device=cfg.device)
@@ -289,6 +325,7 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
     if params is not None:
         model.load_state_dict(params, strict=True)
     model.to(device)
+    tensor.shard_model_(model, group, cfg.parallel.tp_min_channels)
 
     metrics_logger = MetricsLogger(cfg.train.logdir, mesh.is_main(group))
     ckpt = CheckpointManager(os.path.join(cfg.train.logdir, "ckpt"),
@@ -374,7 +411,7 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
                 bx, by = wmh_data.augment_batch(bx, by,
                                                 cfg.data.augmentation,
                                                 aug_rng)
-            sharded = group is not None and len(bx) % group.world == 0
+            sharded = group is not None and len(bx) % group.data == 0
             if sharded:
                 bx, by = (a[group.rows(len(a))] for a in (bx, by))
             x = torch.from_numpy(np.ascontiguousarray(bx)).to(device)
@@ -437,8 +474,8 @@ def train(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None
     # final test with the best params at full resolution, with the last
     # stage's n_levels_used (``train_pt.py:662-666``)
     test_loss, sweep, _, _ = evaluate(
-        cfg, lambda p, x: predict_fn(p, x, n), best_params, te_x, te_y,
-        None)
+        cfg, lambda p, x: predict_fn(p, x, n),
+        tensor.local_tensors(model, best_params), te_x, te_y, None)
     best_th = max(sweep, key=lambda k: sweep[k]["dsc"])
     metrics_logger.log({"test/loss": test_loss,
                         "test/best_dsc": sweep[best_th]["dsc"]}, step)

@@ -22,7 +22,7 @@ import torch.nn as nn
 
 from unet_design_tpu_torch.data import loader as loader_lib
 from unet_design_tpu_torch.ops import wavelet
-from unet_design_tpu_torch.parallel import mesh
+from unet_design_tpu_torch.parallel import mesh, spatial, tensor
 from unet_design_tpu_torch.train import freezing
 from unet_design_tpu_torch.train.checkpoint import (CheckpointManager,
                                                     resume_source)
@@ -52,29 +52,51 @@ def make_optimizer(params: Iterable[nn.Parameter], lr: float,
     the LR follows a schedule."""
     params = list(params)
     if optimizer == "adam":
-        return torch.optim.Adam(params, lr=lr, eps=1e-8)
-    if optimizer == "adamw":
-        return torch.optim.AdamW(params, lr=lr, eps=1e-8,
-                                 weight_decay=weight_decay)
-    raise NotImplementedError(optimizer)
+        opt = torch.optim.Adam(params, lr=lr, eps=1e-8)
+    elif optimizer == "adamw":
+        opt = torch.optim.AdamW(params, lr=lr, eps=1e-8,
+                                weight_decay=weight_decay)
+    else:
+        raise NotImplementedError(optimizer)
+    # the moments of a model-sharded parameter save and load whole
+    return tensor.shard_optimizer_(opt)
 
 
-def global_norm(grads: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
+def global_norm(grads: Sequence[Optional[torch.Tensor]],
+                params: Optional[Sequence[torch.Tensor]] = None,
+                group: Optional[mesh.Group] = None) -> torch.Tensor:
     """``optax.global_norm``: the L2 norm of all gradients together (a
-    None gradient counts as zero), as a tensor on their device."""
-    gs = [g for g in grads if g is not None]
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+    None gradient counts as zero), as a tensor on their device.  With
+    ``params`` (those of ``grads``) of which some are sharded over the
+    model ranks of ``group`` (``parallel/tensor.py``), the squares of
+    their blocks are summed over those ranks: the norm of the full
+    gradients."""
+    pairs = [(g, p) for g, p in zip(grads, params or [None] * len(grads))
+             if g is not None]
+    sharded = [p is not None and tensor.is_sharded(p) for _, p in pairs]
+    norms = torch._foreach_norm([g for g, _ in pairs])
+    if not any(sharded):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = torch.stack(norms).double().square()
+    mask = torch.tensor(sharded, device=sq.device)
+    part = (sq * mask).sum()
+    spatial.all_reduce_(part, group.model_group)
+    return (part + (sq * ~mask).sum()).sqrt().to(norms[0].dtype)
 
 
 def clip_by_global_norm_(grads: Sequence[Optional[torch.Tensor]],
-                         max_norm: float) -> None:
+                         max_norm: float,
+                         params: Optional[Sequence[torch.Tensor]] = None,
+                         group: Optional[mesh.Group] = None) -> None:
     """``optax.clip_by_global_norm`` in place: when the global norm of
     ``grads`` reaches ``max_norm``, scale them by ``max_norm / norm``.
     Decided on the device, so the host does not wait for the norm."""
+    if params is not None:
+        params = [p for g, p in zip(grads, params) if g is not None]
     gs = [g for g in grads if g is not None]
     if not gs:
         return
-    norm = global_norm(gs)
+    norm = global_norm(gs, params, group)
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
     torch._foreach_mul_(gs, scale)
@@ -125,8 +147,10 @@ def pack_state(state: TrainState) -> Dict[str, Any]:
     """``state`` as tensors, names and the optimizer's class (what a
     spawned rank hands back, ``mesh.launch``): a model need not pickle."""
     opt = state.optimizer
+    ema = (tensor.full_tensors(state.model, state.ema)
+           if state.ema is not None else None)
     packed = {"model": state.model.state_dict(), "step": state.step,
-              "ema": state.ema, "optimizer": None}
+              "ema": ema, "optimizer": None}
     if opt is not None:
         names = {id(p): n for n, p in state.model.named_parameters()}
         packed["optimizer"] = {
@@ -249,7 +273,9 @@ def run_stages(model: nn.Module, stages: Sequence[StageSpec], tc: Any, *,
     ``mesh.sharded_batch`` (global draws and batch sums), averages every
     gradient over the ranks before the norm and the clip, logs the mean
     loss over the ranks, and stops when a stop file is on any rank; rank 0
-    writes the checkpoints.
+    writes the checkpoints.  A spatial axis steps on the rank's slab of
+    the stage's batch (``spatial.field``); the blocks of model-sharded
+    parameters count whole in the norm, and save and restore whole.
     """
     named = dict(model.named_parameters())
     for p in named.values():
@@ -265,7 +291,7 @@ def run_stages(model: nn.Module, stages: Sequence[StageSpec], tc: Any, *,
         model.load_state_dict(raw["model"])
         for key, tensors in extra_state.items():
             for n, v in raw[key].items():
-                tensors[n].copy_(v)
+                tensors[n].copy_(tensor.local_tensor(model, n, v))
         log.info("Resumed from checkpoint step %d", resume_step)
     if tc.stop_after_steps and resume_step >= tc.stop_after_steps:
         return resume_step, None, True   # nothing left to train
@@ -278,7 +304,10 @@ def run_stages(model: nn.Module, stages: Sequence[StageSpec], tc: Any, *,
     stage: Optional[Stage] = None
 
     def save():
-        ckpt.save(step, {"model": model.state_dict(), **extra_state,
+        # full tensors, as one rank writes them (parallel/tensor.py)
+        full = {k: tensor.full_tensors(model, v)
+                for k, v in extra_state.items()}
+        ckpt.save(step, {"model": model.state_dict(), **full,
                          "optimizer": stage.optimizer.state_dict(),
                          "generator": stage.generator.get_state(),
                          "step": step})
@@ -310,19 +339,23 @@ def run_stages(model: nn.Module, stages: Sequence[StageSpec], tc: Any, *,
             x0 = batch_fn(idx, step)
             if sequ and spec.n_downsample:
                 x0 = wavelet.haar_downsample(x0, spec.n_downsample)
-            with mesh.sharded_batch(group):
-                loss, loss_list = loss_fn(stage, x0, step)
+            # a spatial axis: this rank's slab of the stage's batch
+            with mesh.sharded_batch(group), \
+                    spatial.field(group, x0.shape[1]):
+                loss, loss_list = loss_fn(stage, spatial.slab(x0, 1), step)
                 model.zero_grad(set_to_none=True)
                 loss.backward()
             for p in named.values():
                 if p.grad is None:   # not reached at this stage: optax's 0
                     p.grad = torch.zeros_like(p)
+            params = list(named.values())
             if group is not None:
-                group.all_reduce_grads_([p.grad for p in named.values()])
-            grad_norm = global_norm([p.grad for p in named.values()])
+                group.all_reduce_grads_([p.grad for p in params],
+                                        tensor.sharded_mask(params))
+            grad_norm = global_norm([p.grad for p in params], params, group)
             if tc.grad_clip is not None:
                 clip_by_global_norm_([p.grad for p in train_params],
-                                     tc.grad_clip)
+                                     tc.grad_clip, train_params, group)
             stage.optimizer.param_groups[0]["lr"] = lr_at(step - stage_start)
             stage.optimizer.step()
             if on_update:
