@@ -26,7 +26,6 @@ every arm in turn:
   rank, and from one rank's checkpoint at model=2, with the uninterrupted
   run's losses.
 """
-import json
 import os
 
 import jax
@@ -42,6 +41,7 @@ from unet_design_tpu_torch.models import convert
 from unet_design_tpu_torch.parallel import mesh
 from unet_design_tpu_torch.tasks import diff_cifar, diff_mnist, pde, wmh
 from _flax_numpy_params import NumpyInit, random_params
+from _metrics_series import assert_close_series, read_metrics
 import _torch_parallel_axes_runs as runs
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_diff_cifar_train import _jax_draws
@@ -49,24 +49,6 @@ from test_torch_diff_cifar_train import _jax_draws
 PDE_KEYS = ["train/loss_mean", "valid/loss/mse", "valid/unrolled_loss_mean"]
 DIFF_KEYS = ["train/loss", "train/grad_norm"]
 WMH_KEYS = ["train/loss", "valid/loss", "test/loss"]
-
-
-def read_metrics(logdir):
-    out = {}
-    with open(os.path.join(logdir, "metrics.jsonl")) as f:
-        for line in f:
-            for k, v in json.loads(line).items():
-                if isinstance(v, (int, float)):
-                    out.setdefault(k, []).append(v)
-    return out
-
-
-def assert_close_series(a, b, keys, rtol=2e-4, atol=1e-6):
-    for k in keys:
-        assert k in a and k in b, (k, sorted(a), sorted(b))
-        assert len(a[k]) == len(b[k]), k
-        np.testing.assert_allclose(a[k], b[k], rtol=rtol, atol=atol,
-                                   err_msg=k)
 
 
 def _pde_cfg(mod, logdir, res):

@@ -2,7 +2,7 @@
 ``parallel.data=1`` run, and the staged PDE run against the JAX package's
 ``parallel.data=2`` run.
 
-The shapes are ``tests/test_task_parallel.py``'s (``_pde_cfg``,
+The shapes are ``tests/test_task_parallel*.py``'s (``_pde_cfg``,
 ``_cifar_cfg``, ``_mnist_cfg``, ``_wmh_cfg``), and so are the tolerances:
 the logged series agree at rtol 2e-4 (5e-4 for WMH), which fp32 reduction
 order alone may move.  The single runs are made once for the module; the
@@ -46,6 +46,7 @@ from unet_design_tpu_torch.models import convert
 from unet_design_tpu_torch.parallel import mesh
 from unet_design_tpu_torch.tasks import diff_cifar, diff_mnist, pde, wmh
 from _flax_numpy_params import NumpyInit
+from _metrics_series import assert_close_series, read_metrics
 import _torch_parallel_runs as runs
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_pde_task import _tiny_cfg
@@ -56,23 +57,6 @@ TESTS = os.path.dirname(os.path.abspath(__file__))
 PDE_KEYS = ["train/loss_mean", "valid/loss/mse", "valid/unrolled_loss_mean"]
 DIFF_KEYS = ["train/loss", "train/grad_norm"]
 WMH_KEYS = ["train/loss", "valid/loss", "test/loss"]
-
-
-def read_metrics(logdir):
-    out = {}
-    with open(os.path.join(logdir, "metrics.jsonl")) as f:
-        for line in f:
-            for k, v in json.loads(line).items():
-                if isinstance(v, (int, float)):
-                    out.setdefault(k, []).append(v)
-    return out
-
-
-def assert_close_series(a, b, keys, rtol=2e-4, atol=1e-6):
-    for k in keys:
-        assert k in a and k in b, (k, sorted(a), sorted(b))
-        np.testing.assert_allclose(a[k], b[k], rtol=rtol, atol=atol,
-                                   err_msg=k)
 
 
 def _pde_cfg(logdir):
