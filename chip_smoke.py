@@ -21,6 +21,19 @@ prints no result line); each prints its seconds:
    (8, 64, 64, 3) L3 (phase 12's stage 0) beside its bound, the
    plain version, the ``F.avg_pool2d`` chain (kernel and chain in turns)
    and an empty kernel on the same grid (the launch floor);
+2b. the GroupNorm kernels (``csrc/group_norm.cu``): record the GroupNorm
+   inputs of one forward of each benchmark cell's model (phase 3's
+   ``Unetbase-64_G`` at batch 8 with its backward, the DDPM
+   ``MultiResUNet`` at batch 256 in bf16), check that every NS-2D norm
+   took the split plan and no sampler norm did, hold each input's output,
+   mean and rstd against float64 and the plain version, the wrapper
+   ``group_norm`` against float64 ``F.group_norm`` (its autograd
+   Function's dx, dweight and dbias too at the NS-2D inputs), and give
+   each one's device time by kernel, L2 cold and warm, beside its bound
+   (x read and y written once at 3.35 TB/s) and two yardsticks:
+   ``F.group_norm(x.float()).to(dtype)`` and the plain route of ATen's
+   ``var_mean`` then one ``addcmul`` pass; rows to
+   ``runs/chip_smoke_group_norm.json``;
 3. train ``Unetbase-64_G`` at full width (hidden 64, 128x128, batch 8) with
    the DWT encoder, the multi-resolution loss and freezing through four
    stages of one epoch each, stopping and resuming at every stage boundary
@@ -46,8 +59,8 @@ prints no result line); each prints its seconds:
    Frechet distance of two full-rank sigmas at d = 2048 (a finite
    Newton-Schulz root on the card) against scipy's ``sqrtm``, timed; and
    the trained model's fp32 forward on the card against the CPU;
-5. time the ``Unetbase-64`` forward at the ``bench.py`` protocol (batch 8,
-   (8, 4, 128, 128, 3) fp32) with CUDA events;
+5. (retired: the ``Unetbase-64`` forward's speed reading; the
+   benchmark's cells time the models);
 6. train the MNIST-Triangular VP diffusion (``configs/diff_mnist_triangular
    .yaml``'s ``WaveletUNetOpenAI``: ch 32 x [2, 2, 2, 2], fp32, 64x64,
    batch 128, DWT encoder, multi-res loss, freezing, N = 30) on 512
@@ -144,8 +157,7 @@ prints no result line); each prints its seconds:
    bf16 model at batch 1 on the card within 0.03 of the scale of the same
    bf16 weights on the CPU; ``configs/wmh.yaml``'s model in bf16 + remat,
    staged, 2 steps a stage on ``synthetic_wmh(64)``, 18 launches (the
-   stage downsample of image and mask); the ``Unetbase-64`` bf16 forward
-   at phase 5's protocol beside phase 5's fp32 time; the conditioned
+   stage downsample of image and mask); the conditioned
    yaml's ``Unetmod-64`` in bf16, 2 steps and one validation;
 13. data parallelism (``parallel.data=2``): two ranks started by
    ``mesh.launch`` share the card over gloo (NCCL refuses two ranks on one
@@ -205,7 +217,10 @@ Kernel launches are counted on each training path alone (the count is set
 to 0 just before it and read just after) and printed per path; the
 kernels' JSON record carries their sum, phase 11's streamed path,
 phase 12's bf16 / remat paths, phase 13's and phase 15's ranks and
-phase 14's CelebA run among them.  The line
+phase 14's CelebA run among them.  The GroupNorm kernels' launches and
+split calls are counted on the same paths and on phases 8 and 9, each held
+against the path's GroupNorm forwards on the card (2 launches a forward,
+3 where the rows split; a remat replay is a forward).  The line
 before the last is ``nvidia-smi``'s name and power limit; the one before that, the kernels'
 JSON record; the last line, ``{"ok": true, "device": {...}}``.  Imports
 nothing of JAX.
@@ -506,6 +521,371 @@ def time_pyramid(haar, x: torch.Tensor, n_levels: int) -> dict:
                 launch_floor_us=empty_dev)
 
 
+#: each training path's GroupNorm forwards on the card and the kernels'
+#: launches and split calls there (:class:`GroupNormCount`)
+GN_PATHS: dict = {}
+
+
+class GroupNormCount:
+    """The GroupNorm kernels on one training path: ``launches`` and
+    ``split_calls`` of :mod:`ops.group_norm` set to 0 where the path
+    starts and read at :meth:`end`, where it ends, and held against the
+    path's GroupNorm forwards on CUDA tensors (a global forward pre-hook;
+    a remat replay is a forward too): 2 launches a forward, 3 where its
+    plan splits the rows.  With a ``path`` the counts go to
+    ``GN_PATHS``."""
+
+    def __init__(self, path: str = ""):
+        from unet_design_tpu_torch.ops import blocks
+        from unet_design_tpu_torch.ops import group_norm as gn
+        from unet_design_tpu_torch.parallel import spatial
+        self.path, self.gn = path, gn
+        self.want = dict(forwards=0, launches=0, split_calls=0)
+
+        def pre(m, inp):
+            x = inp[0]
+            if (isinstance(m, blocks.GroupNorm) and x.is_cuda
+                    and spatial.local_field(x, 2) is None):
+                split = int(gn.plan(x.shape, x.dtype, m.num_groups,
+                                    x.get_device()).chunks > 1)
+                self.want["forwards"] += 1
+                self.want["launches"] += 2 + split
+                self.want["split_calls"] += split
+        gn.launches = gn.split_calls = 0
+        self.hook = torch.nn.modules.module.register_module_forward_pre_hook(
+            pre)
+
+    def end(self) -> dict:
+        self.hook.remove()
+        got = dict(forwards=self.want["forwards"], launches=self.gn.launches,
+                   split_calls=self.gn.split_calls)
+        if self.path:
+            GN_PATHS[self.path] = got
+            log(f"[group_norm] {self.path}: {got['forwards']} GroupNorm "
+                f"forwards on the card, {got['launches']} kernel launches, "
+                f"{got['split_calls']} split calls")
+        if got != self.want:
+            raise AssertionError(f"group_norm kernels on {self.path!r}: "
+                                 f"{got}, expected {self.want}")
+        return got
+
+
+def _gn_ranks(path: str, counts: list) -> None:
+    """The ranks' :class:`GroupNormCount` results, each held against its
+    own rank's forwards, summed into ``GN_PATHS[path]``."""
+    GN_PATHS[path] = {k: sum(c[k] for c in counts)
+                      for k in ("forwards", "launches", "split_calls")}
+    log(f"[group_norm] {path}: {GN_PATHS[path]}")
+
+
+def _cell_model(name: str):
+    """The model of a benchmark cell on the card, seeded init, with its
+    input at the cell's batch: ``(model, args)``.  ``"ns2d"``: phase 3's
+    ``Unetbase-64_G`` (hidden 64, 128x128, batch 8, fp32); ``"sampler"``:
+    the DDPM ``MultiResUNet`` (``diff_cifar``'s default ch 128 x [1, 2, 2,
+    2]) with the DWT encoder and multi-res loss, bf16, at batch 256."""
+    from unet_design_tpu_torch.ops import blocks
+    from unet_design_tpu_torch.tasks import diff_cifar, pde
+    g = torch.Generator().manual_seed(0)
+    if name == "ns2d":
+        cfg = _slice_config("")
+        model = pde.build_model(cfg)
+        d = cfg.data
+        args = (torch.randn((d.batch_size, d.time_history, d.resolution,
+                             d.resolution, d.n_scalar_components
+                             + 2 * d.n_vector_components), generator=g),)
+    else:
+        cfg = diff_cifar.Config()
+        m = cfg.model
+        m.dwt_encoder = m.multi_res_loss = m.use_bf16 = True
+        model = diff_cifar.build_model(cfg)
+        args = (torch.randn((256, 32, 32, 3), generator=g),
+                torch.randint(0, cfg.diffusion.T, (256,), generator=g))
+    blocks.flax_default_init_(model, g)
+    return model.to("cuda"), tuple(a.to("cuda") for a in args)
+
+
+def _group_norm_inputs(model, args, backward: bool) -> list:
+    """``[(shape, groups, dtype, channels_last, count)]`` of the GroupNorm
+    inputs of one forward (and backward) of ``model``, and the kernels'
+    split calls and launches over it."""
+    from unet_design_tpu_torch.ops import group_norm as gn
+    seen: dict = {}
+
+    def pre(m, inp):
+        x = inp[0]
+        key = (tuple(x.shape), m.num_groups, x.dtype, not x.is_contiguous())
+        seen[key] = seen.get(key, 0) + 1
+    hooks = [m.register_forward_pre_hook(pre) for m in model.modules()
+             if isinstance(m, torch.nn.GroupNorm)]
+    before = (gn.launches, gn.split_calls)
+    try:
+        with torch.set_grad_enabled(backward):
+            out = model(*args)
+            if backward:
+                sum(o.float().sum() for o in (
+                    out if isinstance(out, (list, tuple)) else [out])
+                    ).backward()
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    counts = (gn.launches - before[0], gn.split_calls - before[1])
+    return [(*k, n) for k, n in seen.items()], counts
+
+
+def _device_us_by_kernel(fn, calls: int = 20, flush=None) -> dict:
+    """Device microseconds per call of ``fn`` by kernel name (the
+    profiler's events), after a warm-up call; with ``flush`` (a callable
+    that fills a buffer larger than L2; its fill kernels are left out of
+    the sums) run before each call, so that ``fn`` finds its inputs out of
+    L2.  Empty where the profiler recorded fewer events than calls."""
+    from torch.profiler import ProfilerActivity, profile
+    from unet_design_tpu_torch.benchmark.probe import device_events
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in device_events(prof)
+                  if flush is None or "FillFunctor" not in e[0]]
+        if len(events) >= calls:
+            out: dict = {}
+            for name, s, t in events:
+                out[name] = out.get(name, 0.0) + (t - s) / 1e3 / calls
+            return out
+    return {}
+
+
+def _gn_kernel_class(name: str) -> str:
+    for k in ("moments_kernel", "finalize_kernel", "normalize_kernel"):
+        if k in name:
+            return k.split("_")[0]
+    return "copy" if "copy" in name.lower() or "elementwise" in name else \
+        name[:40]
+
+
+def _var_mean_group_norm():
+    """The plain route to GroupNorm on the card, a yardstick beside the
+    kernels: ATen's ``var_mean`` over each (sample, group) row (its
+    reduction spreads a long row over many blocks), then one ``addcmul``
+    pass in fp32, cast to x's dtype; the backward is the kernels'
+    Function's.  Returns ``fn(x, groups, weight, bias)``."""
+    from unet_design_tpu_torch.ops import group_norm as gn
+
+    class VarMeanGroupNorm(gn.GroupNormFunction):
+        @staticmethod
+        def forward(ctx, x, weight, bias, num_groups, eps):
+            n, c = x.shape[:2]
+            var, mean = torch.var_mean(
+                x.reshape(n, num_groups, -1).float(), -1, correction=0)
+            rstd = torch.rsqrt(var + eps)
+            a = (rstd[..., None] * weight.view(num_groups, -1)).view(n, c, 1)
+            shift = bias.view(c, 1) - mean.repeat_interleave(
+                c // num_groups, 1)[..., None] * a
+            y = torch.addcmul(shift, x.reshape(n, c, -1), a)
+            ctx.save_for_backward(x, weight, mean, rstd)
+            ctx.num_groups = num_groups
+            return y.to(x.dtype).view(x.shape)
+
+    def fn(x, groups, weight, bias):
+        return VarMeanGroupNorm.apply(x.contiguous(), weight, bias, groups,
+                                      1e-5)
+    return fn
+
+
+def _gn_grads_against_float64(gn, x, groups, w, b, dy) -> dict:
+    """``gn.group_norm`` forward and backward (its autograd Function)
+    against float64 ``F.group_norm`` on the same input and upstream
+    gradient: the largest relative error of y, dx, dweight and dbias."""
+    xs = [x.detach().clone().requires_grad_(), x.detach().double()
+          .requires_grad_()]
+    ps = [(w.clone().requires_grad_(), b.clone().requires_grad_()),
+          (w.double().requires_grad_(), b.double().requires_grad_())]
+    y = gn.group_norm(xs[0], groups, *ps[0])
+    y.backward(dy)
+    y64 = F.group_norm(xs[1], groups, *ps[1], 1e-5)
+    y64.backward(dy.double())
+    pairs = dict(y=(y, y64), dx=(xs[0].grad, xs[1].grad),
+                 dweight=(ps[0][0].grad, ps[1][0].grad),
+                 dbias=(ps[0][1].grad, ps[1][1].grad))
+    return {k: float((a.detach().double() - e.detach()).abs().max()
+                   / e.detach().abs().max())
+            for k, (a, e) in pairs.items()}
+
+
+def phase_group_norm(device) -> dict:
+    """GroupNorm's kernels at the inputs of both cells' models (recorded
+    from a forward of each): held against float64 and the plain version,
+    the wrapper ``group_norm`` and its autograd Function against float64
+    (forward, and backward at the NS-2D inputs), the split decided from
+    the shape (every NS-2D norm split, no sampler norm), and each case's
+    device time beside its bound (x read once and y written once at 3.35
+    TB/s), beside ``F.group_norm(x.float()).to(dtype)`` (the module's
+    expression before the kernels) and beside the plain route of
+    :func:`_var_mean_group_norm`, the yardsticks; the port calls
+    neither."""
+    from unet_design_tpu_torch.ops import _build
+    from unet_design_tpu_torch.ops import group_norm as gn
+    t0 = time.perf_counter()
+    _build.load(gn.SOURCE)
+    log(f"[group_norm] built {gn.SOURCE} in {time.perf_counter() - t0:.2f} s")
+    for src, (secs, out) in _build.BUILD_LOG.items():
+        if src == gn.SOURCE:
+            log(f"[group_norm] nvcc {secs:.2f} s; ptxas:\n{out}")
+    cases = []
+    for config, backward in (("ns2d", True), ("sampler", False)):
+        model, args = _cell_model(config)
+        inputs, (launches, splits) = _group_norm_inputs(model, args, backward)
+        calls = sum(c[-1] for c in inputs)
+        log(f"[group_norm] {config}: {calls} GroupNorm forwards, "
+            f"{splits} split calls, {launches} kernel launches; inputs "
+            f"(shape, groups, dtype, not NCHW-contiguous, count): {inputs}")
+        want_splits = calls if config == "ns2d" else 0
+        if splits != want_splits or launches != 2 * calls + splits:
+            raise AssertionError(f"{config}: {splits} split calls and "
+                                 f"{launches} launches, expected "
+                                 f"{want_splits} and "
+                                 f"{2 * calls + want_splits}")
+        cases += [(config, backward, *c) for c in inputs]
+        del model, args
+    torch.cuda.empty_cache()
+    flush_buf = torch.empty(64 * 2 ** 20, device=device)   # 256 MB > L2
+
+    def flush():
+        flush_buf.zero_()
+
+    var_mean_route = _var_mean_group_norm()
+    g = torch.Generator().manual_seed(0)
+    rows, worst = [], 0.0
+    for config, backward, shape, groups, dtype, strided, count in cases:
+        x = (torch.randn(shape, generator=g) + 0.5).to(device=device,
+                                                       dtype=dtype)
+        if strided:
+            x = x.to(memory_format=torch.channels_last)
+        w = (1 + 0.1 * torch.randn(shape[1], generator=g)).to(device)
+        b = (0.1 * torch.randn(shape[1], generator=g)).to(device)
+        p = gn.plan(shape, dtype, groups, x.get_device())
+        y, mean, rstd = gn.group_norm_forward(x.contiguous(), groups, w, b,
+                                              1e-5)
+        y64, mu64, rstd64 = torch.ops.aten.native_group_norm(
+            x.double().contiguous(), w.double(), b.double(), shape[0],
+            shape[1], x.numel() // (shape[0] * shape[1]), groups, 1e-5)
+        y_p, mu_p, rstd_p = gn.group_norm_reference(x, groups, w, b, 1e-5,
+                                                    p.chunks)
+        y_v = var_mean_route(x, groups, w, b)
+        errs = dict(
+            y=float((y.double() - y64).abs().max() / y64.abs().max()),
+            mean=float((mean.double() - mu64).abs().max()),
+            rstd=float(((rstd.double() - rstd64) / rstd64).abs().max()),
+            y_plain=float((y.float() - y_p.float()).abs().max()
+                          / y_p.float().abs().max()),
+            y_var_mean=float((y_v.double() - y64).abs().max()
+                             / y64.abs().max()))
+        if backward:
+            dy = torch.randn(shape, generator=g).to(device=device,
+                                                    dtype=dtype)
+            errs["wrapper"] = _gn_grads_against_float64(gn, x, groups, w, b,
+                                                        dy)
+        else:
+            errs["wrapper"] = dict(y=float(
+                (gn.group_norm(x, groups, w, b).double() - y64).abs().max()
+                / y64.abs().max()))
+        # fp32: reduction order alone; bf16: one rounding of y
+        tol = 2e-5 if dtype == torch.float32 else 2 ** -8
+        plain_tol = 2e-6 if dtype == torch.float32 else 2 ** -7
+        grad_tol = 1e-4 if dtype == torch.float32 else 2 ** -7
+        if (errs["y"] > tol or errs["mean"] > 1e-5 or errs["rstd"] > 1e-5
+                or errs["y_plain"] > plain_tol or errs["y_var_mean"] > tol
+                or errs["wrapper"]["y"] > tol
+                or any(v > grad_tol for v in errs["wrapper"].values())):
+            raise AssertionError(f"group_norm {shape} G{groups} {dtype}: "
+                                 f"{errs}")
+        worst = max(worst, errs["y"])
+
+        def kernel():
+            return gn.group_norm(x, groups, w, b)
+
+        def library():
+            return F.group_norm(x.float(), groups, w, b, 1e-5).to(dtype)
+
+        def var_mean():
+            return var_mean_route(x, groups, w, b)
+
+        def plain():
+            return gn.group_norm_reference(x, groups, w, b, 1e-5, p.chunks)
+
+        n_bytes = 2 * x.numel() * x.element_size() + 2 * w.numel() * 4
+        bound_us = n_bytes / BYTES_PER_S * 1e6
+        per = {}
+        for name, fn in (("kernel", kernel), ("library", library),
+                         ("kernel", kernel), ("library", library)):
+            per.setdefault(name, []).append(time_ms(fn, 50, 5) * 1e3)
+        dev = {}
+        for tag, fl in (("warm", None), ("cold", flush)):
+            for name, fn in (("kernel", kernel), ("library", library),
+                             ("var_mean", var_mean)):
+                dev[name, tag] = _device_us_by_kernel(fn, flush=fl)
+        by_class: dict = {}
+        for k, v in dev["kernel", "cold"].items():
+            c = _gn_kernel_class(k)
+            by_class[c] = by_class.get(c, 0.0) + v
+        tot = {k: (sum(v.values()) if v else None) for k, v in dev.items()}
+        plain_us = time_ms(plain, 5, 1) * 1e3
+        row = dict(config=config, shape=list(shape), groups=groups,
+                   dtype=str(dtype)[6:], channels_last=strided, count=count,
+                   chunks=p.chunks, team=p.team, bound_us=bound_us,
+                   kernel_us=tot["kernel", "cold"],
+                   kernel_warm_us=tot["kernel", "warm"],
+                   library_us=tot["library", "cold"],
+                   library_warm_us=tot["library", "warm"],
+                   var_mean_us=tot["var_mean", "cold"],
+                   var_mean_warm_us=tot["var_mean", "warm"],
+                   var_mean_by_kernel={k[:60]: v for k, v in
+                                       dev["var_mean", "cold"].items()},
+                   kernel_by_class=by_class, plain_us=plain_us,
+                   per_call_us=per, errs=errs)
+        rows.append(row)
+        log(f"[group_norm] {config} {tuple(shape)} G{groups} "
+            f"{str(dtype)[6:]}{' channels_last' if strided else ''} x{count}"
+            f": chunks {p.chunks} team {p.team}; device us a call, L2 cold "
+            f"(warm): kernels {us_text(tot['kernel', 'cold'])} "
+            f"({us_text(tot['kernel', 'warm'])}) by kernel "
+            f"{ {k: round(v, 3) for k, v in by_class.items()} }, "
+            f"F.group_norm(x.float()).to(dtype) "
+            f"{us_text(tot['library', 'cold'])} "
+            f"({us_text(tot['library', 'warm'])}), var_mean + addcmul "
+            f"{us_text(tot['var_mean', 'cold'])} "
+            f"({us_text(tot['var_mean', 'warm'])}); bound "
+            f"{bound_us:.3f} us ({n_bytes} B); plain {plain_us:.1f} us; "
+            f"per call (CUDA events, kernel/library in turns) "
+            f"{ {k: [round(t, 2) for t in v] for k, v in per.items()} }; "
+            f"errs {errs}; on {card_line()}")
+    for config in ("ns2d", "sampler"):
+        sel = [r for r in rows if r["config"] == config]
+        if all(r["kernel_us"] and r["library_us"] and r["var_mean_us"]
+               for r in sel):
+            k, lib, vm, bnd = (sum(r[key] * r["count"] for r in sel)
+                               for key in ("kernel_us", "library_us",
+                                           "var_mean_us", "bound_us"))
+            log(f"[group_norm] {config}: a forward's GroupNorms, L2 cold: "
+                f"kernels {k:.1f} us, F.group_norm {lib:.1f} us, var_mean "
+                f"+ addcmul {vm:.1f} us, bound {bnd:.1f} us ({bnd / k:.3f} "
+                f"of it reached)")
+    os.makedirs(os.path.join(HERE, "runs"), exist_ok=True)
+    with open(os.path.join(HERE, "runs", "chip_smoke_group_norm.json"),
+              "w") as f:
+        json.dump(rows, f, indent=1)
+    return dict(name="group_norm", route="cuda",
+                source="unet_design_tpu_torch/csrc/group_norm.cu",
+                replaces=None, launches=None, split_calls=None,
+                max_rel_err=worst)
+
+
 def _slice_config(logdir: str):
     from unet_design_tpu_torch.tasks import pde
     cfg = pde.Config()
@@ -547,6 +927,7 @@ def phase_slice() -> int:
     per_stage = []
     state = None
     haar.launches = 0   # main path starts here
+    gn_path = GroupNormCount("PDE staged training")
     for stage in range(n_stages):
         cfg = _slice_config(logdir)
         cfg.train.resume = stage > 0
@@ -556,6 +937,7 @@ def phase_slice() -> int:
         snapshots.append({k: v.detach().clone()
                           for k, v in state.model.state_dict().items()})
     launches = haar.launches  # main path ends here
+    gn_path.end()
 
     records = [json.loads(l) for l in open(os.path.join(logdir,
                                                         "metrics.jsonl"))]
@@ -737,6 +1119,7 @@ def phase_ddpm() -> int:
     snapshots, per_stage = [], []
     state = None
     haar.launches = 0   # the DDPM path starts here
+    gn_path = GroupNormCount("DDPM staged training")
     for stage in range(4):
         before = haar.launches
         state = diff_cifar.train(_ddpm_config(logdir, stage, cache))
@@ -746,6 +1129,7 @@ def phase_ddpm() -> int:
              state.model.state_dict().items()},
             {k: v.clone() for k, v in state.ema.items()}))
     launches = haar.launches  # the DDPM path ends here
+    gn_path.end()
     restore_fid()
 
     records = [json.loads(l) for l in open(os.path.join(logdir,
@@ -1010,6 +1394,7 @@ def phase_mnist() -> int:
              images=_synthetic_digits(512), labels=np.zeros(512, np.int64))
     snapshots, per_stage = [], []
     haar.launches = 0   # the VP path starts here
+    gn_path = GroupNormCount("VP staged training")
     for stage in range(4):
         before = haar.launches
         state = diff_mnist.train(_mnist_config(logdir, root, stage))
@@ -1017,6 +1402,7 @@ def phase_mnist() -> int:
         snapshots.append({k: v.detach().clone() for k, v in
                           state.model.state_dict().items()})
     launches = haar.launches  # the VP path ends here
+    gn_path.end()
 
     records = [json.loads(l) for l in open(os.path.join(logdir,
                                                         "metrics.jsonl"))]
@@ -1143,6 +1529,7 @@ def phase_wmh() -> int:
     per_epoch, sweeps, snapshots = [], [], []
     wmh.downsample_routes.clear()
     haar.launches = 0   # the WMH path starts here
+    gn_path = GroupNormCount("WMH staged training")
     for epoch in range(n_epochs):
         before = haar.launches
         best, sweep = wmh.train(_wmh_config(logdir, epoch))
@@ -1152,6 +1539,7 @@ def phase_wmh() -> int:
             snapshots.append(CheckpointManager(os.path.join(
                 logdir, "ckpt_latest"), keep=2).restore(epoch)["model"])
     launches = haar.launches  # the WMH path ends here
+    gn_path.end()
 
     records = [json.loads(l) for l in open(os.path.join(logdir,
                                                         "metrics.jsonl"))]
@@ -1345,6 +1733,7 @@ def phase_zoo(data: str) -> None:
     base = os.path.join(HERE, "runs", "chip_smoke_zoo")
     shutil.rmtree(base, ignore_errors=True)
     haar.launches = 0   # the zoo path starts here
+    gn_path = GroupNormCount("zoo")
 
     # (a) the shallow-water yaml end to end: two epochs, stopped after the
     # first and resumed, then the best checkpoint scored on the test split
@@ -1400,6 +1789,7 @@ def phase_zoo(data: str) -> None:
         checked.append(((name, 4), state.model))
         _zoo_card_vs_cpu(name, state.model, cfg, (1, 4, 64, 64, 3))
     launches = haar.launches  # the zoo path ends here
+    gn_path.end()
 
     for key, m in checked:
         n = common.param_count(m)
@@ -1460,6 +1850,7 @@ def phase_cond() -> None:
     log(f"[cond] synthetic NS-2D set {COND_SPLITS} x (56, 128, 128, 1 + 2),"
         f" buoyancy {BUOYANCY}, made in {time.perf_counter() - t0:.1f} s")
     haar.launches = 0   # the conditioned path starts here
+    gn_path = GroupNormCount("conditioned")
 
     runs = [("Unetmod-64", ["train.epochs=2"], splits),
             # the conditioned FNO: 2 steps (16 trajectories), one epoch
@@ -1517,6 +1908,7 @@ def phase_cond() -> None:
         if not torch.isfinite(out).all() or err > 1e-4 * max(scale, 1e-6):
             raise AssertionError(f"{name}: card forward disagrees: {err}")
     launches = haar.launches  # the conditioned path ends here
+    gn_path.end()
     log(f"[cond] haar_pyramid launches on the conditioned path: {launches}")
     if launches != 0:
         raise AssertionError("the conditioned models have no multi-res "
@@ -1758,9 +2150,11 @@ def phase_stream(data: str) -> int:
     n_steps = (SW_SPLITS["train"] * cfg.data.trajlen
                // cfg.data.batch_size) * 2
     haar.launches = 0   # the streamed path starts here
+    gn_path = GroupNormCount("PDE streamed training")
     got = _stream_arm("Unetbase-64_G both streamed", g_args,
                       ["data.device_cache=false"])
     launches = haar.launches  # the streamed path ends here
+    gn_path.end()
     _same_as_staged("Unetbase-64_G both streamed", got, ref)
     log(f"[stream] haar_pyramid launches on the streamed Unetbase-64_G path:"
         f" {launches} ({n_steps} steps)")
@@ -1768,34 +2162,6 @@ def phase_stream(data: str) -> int:
         raise AssertionError(f"expected one launch per step, got {launches}")
     shutil.rmtree(SMOKE_DATA, ignore_errors=True)
     return launches
-
-
-def unetbase_forward_ms(device, dtype: torch.dtype = torch.float32
-                        ) -> float:
-    """The ``Unetbase-64`` forward at the ``bench.py`` protocol (batch 8,
-    (8, 4, 128, 128, 3)), CUDA events over 20 calls."""
-    from unet_design_tpu_torch.models import registry
-    from unet_design_tpu_torch.ops import blocks
-    model = registry.build_model("Unetbase-64", 1, 1, time_history=4,
-                                 time_future=1, dtype=dtype)
-    blocks.flax_default_init_(model, torch.Generator().manual_seed(0))
-    model = model.to(device).eval()
-    x = torch.randn((8, 4, 128, 128, 3), generator=torch.Generator()
-                    .manual_seed(0)).to(device)
-    with torch.no_grad():
-        y = model(x)
-        if (y.shape != (8, 1, 128, 128, 3) or y.dtype != dtype
-                or not torch.isfinite(y).all()):
-            raise AssertionError(f"Unetbase-64 forward: {tuple(y.shape)} "
-                                 f"{y.dtype}")
-        return time_ms(lambda: model(x), iters=20, warmup=3)
-
-
-def phase_forward(device) -> float:
-    ms = unetbase_forward_ms(device)
-    log(f"[forward] Unetbase-64 bs8 (8,4,128,128,3) fp32 (TF32 off): "
-        f"{ms:.4f} ms on {card_line()}")
-    return ms
 
 
 BF16_STAGES = [1, 1]       # phase 12: 2 stages of 3 steps of batch 8
@@ -2025,7 +2391,7 @@ def _bf16_cond() -> None:
     shutil.rmtree(logdir, ignore_errors=True)
 
 
-def phase_bf16(device, fp32_forward_ms: float) -> int:
+def phase_bf16() -> int:
     """Phase 12: bf16 compute and rematerialisation through the normal
     entry points at full width (see the module's docstring); returns the
     Haar launches of its training paths."""
@@ -2040,6 +2406,7 @@ def phase_bf16(device, fp32_forward_ms: float) -> int:
         cudnn.deterministic = deterministic
 
     haar.launches = 0   # the bf16 / remat training paths start here
+    gn_path = GroupNormCount("bf16 / remat training")
     bf16 = _bf16_pde_run("bf16 + remat", True, True)
     cudnn.deterministic = True   # the fp32 pair is compared step by step
     try:
@@ -2049,6 +2416,7 @@ def phase_bf16(device, fp32_forward_ms: float) -> int:
         cudnn.deterministic = deterministic
     wmh_launches = _bf16_wmh()
     launches = haar.launches  # the bf16 / remat training paths end here
+    gn_path.end()
 
     gaps = [abs(a - b) / abs(b) for a, b in zip(fp32_remat["losses"],
                                                 fp32["losses"])]
@@ -2067,10 +2435,6 @@ def phase_bf16(device, fp32_forward_ms: float) -> int:
     _bf16_card_vs_cpu(bf16["state"].model,
                       _bf16_slice_config("", True, True))
 
-    ms = unetbase_forward_ms(device, torch.bfloat16)
-    log(f"[forward] Unetbase-64 bs8 (8,4,128,128,3) bf16: {ms:.4f} ms "
-        f"(fp32, phase 5: {fp32_forward_ms:.4f} ms; {fp32_forward_ms / ms:.2f}"
-        f"x) on {card_line()}")
     _bf16_cond()
     log(f"[bf16] haar_pyramid launches on the bf16 / remat paths: "
         f"{launches} (PDE {launches - wmh_launches}, WMH {wmh_launches})")
@@ -2139,6 +2503,7 @@ def _par_train(arms: dict, group) -> dict:
         arm_group = group(cfg) if callable(group) else group
         torch.cuda.synchronize()
         haar.launches = 0   # this arm's training path starts here
+        gn_path = GroupNormCount()
         calls.clear()
         t0 = time.perf_counter()
         state = importlib.import_module(
@@ -2146,7 +2511,8 @@ def _par_train(arms: dict, group) -> dict:
         torch.cuda.synchronize()
         out[name] = {"secs": time.perf_counter() - t0,
                      "launches": haar.launches,   # ... and ends here
-                     "calls": sorted(set(calls)), "n_calls": len(calls)}
+                     "calls": sorted(set(calls)), "n_calls": len(calls),
+                     "group_norm": gn_path.end()}
         if task == "diff_cifar":
             # the last stage's levels and resolution (2 levels at 8x8)
             d, dev = cfg.diffusion, next(state.model.parameters()).device
@@ -2275,6 +2641,8 @@ def _par_arms(configs=_par_configs) -> tuple:
         if single[arm]["launches"] != want or any(
                 r[arm]["launches"] != want for r in ranks):
             raise AssertionError(f"{arm} Haar launches: {single}, {ranks}")
+    _gn_ranks("data-parallel ranks' training",
+              [r[a]["group_norm"] for r in ranks for a in keys])
     scores = ranks[0]["cifar"]["eval"]
     log(f"[parallel] sharded evaluate of {PAR_EVAL_IMAGES} images: rank 0 "
         f"{scores} in {ranks[0]['cifar']['eval_secs']:.1f} s, rank 1 "
@@ -2418,6 +2786,7 @@ def _axes_check(tag: str, ranks: dict, root: str, single: dict) -> tuple:
     the shapes they launched at."""
     sps = ("train/steps_per_sec",)
     launches, shapes = 0, set()
+    gn_counts = []
     for name, rs in ranks.items():
         world, arm, d, m, s = AXES_ARMS[name]
         one = _par_records(os.path.join(PAR_ROOT, f"{arm}_dp1"),
@@ -2446,6 +2815,7 @@ def _axes_check(tag: str, ranks: dict, root: str, single: dict) -> tuple:
             raise AssertionError(f"{name}: no launch on a slab: {rs}")
         launches += sum(r["launches"] for r in rs)
         shapes |= {(shape, n) for r in rs for (shape, n, _) in r["calls"]}
+        gn_counts += [r["group_norm"] for r in rs]
     if "cifar_d2m2" in ranks:
         rs = ranks["cifar_d2m2"]
         scores = rs[0]["eval"]
@@ -2457,6 +2827,7 @@ def _axes_check(tag: str, ranks: dict, root: str, single: dict) -> tuple:
                 or not np.isfinite(scores["IS"])
                 or scores.get("untrusted_random_inception_weights") != 1.0):
             raise AssertionError(f"evaluate at model=2: {scores}")
+    _gn_ranks(f"{tag} ranks' training", gn_counts)
     return launches, shapes
 
 
@@ -2589,12 +2960,14 @@ def _celeba_vp() -> int:
         return draw(generator, x0, t_range, step)
     diff_mnist.draw_t_noise = spy
     haar.launches = 0   # the CelebA VP path starts here
+    gn_path = GroupNormCount("CelebA VP training")
     try:
         for resume in (False, True):
             diff_mnist.main(_celeba_args(root, logdir, resume))
     finally:
         diff_mnist.draw_t_noise = draw
     launches = haar.launches  # the CelebA VP path ends here
+    gn_path.end()
     n_steps = 4 * CELEBA_STEPS
     at_step[n_steps] = launches
     per_stage = [at_step[(s + 1) * CELEBA_STEPS] - at_step[s * CELEBA_STEPS]
@@ -2848,9 +3221,9 @@ def main() -> int:
 
     timed("build", phase_build)
     record = timed("kernel", phase_kernel, device)
+    gn_record = timed("group_norm", phase_group_norm, device)
     pde_launches = timed("slice", phase_slice)
     ddpm_launches = timed("ddpm", phase_ddpm)
-    fp32_forward_ms = timed("forward", phase_forward, device)
     mnist_launches = timed("mnist", phase_mnist)
     wmh_launches = timed("wmh", phase_wmh)
     timed("wmh-loo", phase_wmh_loo)
@@ -2858,7 +3231,7 @@ def main() -> int:
     timed("zoo", phase_zoo, sw_data)
     timed("cond", phase_cond)
     stream_launches = timed("stream", phase_stream, sw_data)
-    bf16_launches = timed("bf16", phase_bf16, device, fp32_forward_ms)
+    bf16_launches = timed("bf16", phase_bf16)
     par_launches, par_single = timed("parallel", phase_parallel)
     celeba_launches = timed("last", phase_last)
     axes_launches = timed("axes", phase_axes, par_single)
@@ -2872,8 +3245,15 @@ def main() -> int:
     record["launches"] = (pde_launches + ddpm_launches + mnist_launches
                           + wmh_launches + stream_launches + bf16_launches
                           + par_launches + axes_launches + celeba_launches)
+    log(f"[launches] group_norm kernels per path (GroupNorm forwards on "
+        f"the card, launches, split calls): {json.dumps(GN_PATHS)}")
+    for path in ("PDE staged training", "DDPM staged training"):
+        if not GN_PATHS[path]["forwards"]:
+            raise AssertionError(f"no GroupNorm kernel on {path}")
+    for key in ("launches", "split_calls"):
+        gn_record[key] = sum(c[key] for c in GN_PATHS.values())
     log(f"[done] {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [record, gn_record]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
